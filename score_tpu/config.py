@@ -1,10 +1,10 @@
-"""Typed configuration tree + the BASELINE.json configs[0..4] milestone presets.
+"""Typed configuration tree + the configs0..configs4 milestone presets.
 
 The reference (qinjr/SCoRe, empty mount — SURVEY.md §0) has no structured config:
 hyperparameters live in argv + module constants (SURVEY.md §2.3 #16). Here every
 knob is a frozen dataclass field so a config hashes cleanly into jit static args.
 
-Preset ladder (BASELINE.json:7-11, SURVEY.md §2.4):
+Preset ladder (SURVEY.md §2.4):
     configs0  GRU sequential scorer, single shared table, user side only (CCMR/CPU)
     configs1  dual-side sequence encoders + attention pooling (Taobao)
     configs2  + neighbor one-hop aggregation, per-side attention (Tmall)
@@ -46,7 +46,7 @@ class ModelConfig:
     coattn_pool: str = "sum"       # 'sum' | 'mean' | 'max' relation-matrix pool
     dropout: float = 0.0
     param_dtype: str = "float32"
-    compute_dtype: str = "float32"  # bfloat16 for TPU perf configs
+    compute_dtype: str = "float32"  # bfloat16 for the perf configs
 
     def __post_init__(self):
         assert self.arch in ("score", "mf", "svdpp", "pop", "delf"), self.arch
@@ -80,11 +80,11 @@ class DataConfig:
     #   'inbatch'  k batch-axis rolls of the positives — the negative item
     #              side reuses the positives' already-embedded history
     #              tensors, adding ZERO embedding-row gathers/scatter-adds
-    #              (the dominant step cost, BASELINE.md scatter roofline).
+    #              (the dominant step cost in the profiles taken).
     #              Negatives are popularity-distributed (in-batch sampling's
     #              usual bias); quality-gated vs 'uniform' before use.
-    #              Measured: +43% examples/s but -0.10 val AUC (the bias) —
-    #              use 'inbatch_iw' instead.
+    #              Measured -0.10 val AUC (the bias) — use 'inbatch_iw'
+    #              instead.
     #   'inbatch_iw'  'inbatch' + importance weights on the negative BCE
     #              terms: w_j = uniform(j)/q(j) = num_events/(num_items *
     #              train_count_j), making the expected negative gradient
@@ -121,16 +121,14 @@ class TrainConfig:
     checkpoint_dir: Optional[str] = None
     profile_dir: Optional[str] = None
     log_every_steps: int = 50
-    # Stride-K table updates (VERDICT.md r3 #3): embedding-table grads are
-    # computed and applied only on steps with step % K == 0; dense params
-    # update every step. The backward pass of a non-update step produces NO
-    # table-grad scatter-adds — the pinned 42% of step time (BASELINE.md r3
-    # profile) is skipped on (K-1)/K of steps. Semantics change: tables
-    # train on 1/K of the batches (subsampled, not summed — summed
-    # accumulation cannot win because scatter cost is per-update
-    # issue-bound, BASELINE.md r2/r3 scatter roofline; measured in
-    # scripts/scatter_bench.py accumulate-vs-direct probe). Quality-gated
-    # at 3 seeds before adoption (scripts/table_stride_ablation.py).
+    # Stride-K table updates: embedding-table grads are computed and
+    # applied only on steps with step % K == 0; dense params update every
+    # step. The backward pass of a non-update step produces NO table-grad
+    # scatter-adds, the largest share of the step in the profiles taken.
+    # Semantics change: tables train on 1/K of the batches (subsampled, not
+    # summed — a summed accumulation would still pay one scatter-add per
+    # update). Quality-gated at 3 seeds before adoption
+    # (scripts/table_stride_ablation.py).
     table_update_every: int = 1
     # Multiplies the optimizer's table-row updates (optax.masked scale after
     # adam). Intended compensation for stride-K's K-fold fewer table adam
@@ -169,7 +167,7 @@ class ShardingConfig:
     # from that step on is corrupt — SURVEY.md §7.3 item 1):
     #   'raise'  abort the run with the capacity hint (default: a long
     #            unattended configs4 run must not train on garbage forever
-    #            after one log line — VERDICT.md r3 #8)
+    #            after one log line)
     #   'warn'   print the warning and keep going (debugging/bring-up)
     overflow_action: str = "raise"
 
@@ -199,7 +197,7 @@ def _cfg(model_kw, data_kw=None, train_kw=None, shard_kw=None) -> Config:
 
 
 def configs0() -> Config:
-    """BASELINE.json:7 — GRU sequential scorer, single shared table, CCMR/CPU."""
+    """GRU sequential scorer, single shared table, CCMR/CPU."""
     return _cfg(
         dict(sides="user", slot_agg="mean", seq_pool="last", shared_table=True,
              target_aware=False),
@@ -208,7 +206,7 @@ def configs0() -> Config:
 
 
 def configs1() -> Config:
-    """BASELINE.json:8 — dual-side encoders + attention pooling, Taobao."""
+    """Dual-side encoders + attention pooling, Taobao."""
     return _cfg(
         dict(sides="dual", slot_agg="mean", seq_pool="attn"),
         dict(dataset="taobao"),
@@ -216,7 +214,7 @@ def configs1() -> Config:
 
 
 def configs2() -> Config:
-    """BASELINE.json:9 — + neighbor one-hop aggregation (per-side attention)."""
+    """Adds neighbor one-hop aggregation (per-side attention)."""
     return _cfg(
         dict(sides="dual", slot_agg="attn", seq_pool="attn"),
         dict(dataset="tmall"),
@@ -224,7 +222,7 @@ def configs2() -> Config:
 
 
 def configs3() -> Config:
-    """BASELINE.json:10 — full SCoRe cross-neighbor co-attention."""
+    """Full SCoRe cross-neighbor co-attention."""
     return _cfg(
         dict(sides="dual", slot_agg="coattn", seq_pool="attn", target_aware=True),
         dict(dataset="taobao"),
@@ -232,7 +230,7 @@ def configs3() -> Config:
 
 
 def configs4(num_data: int = 2, num_rows: int = 4) -> Config:
-    """BASELINE.json:11 — multi-host: row-sharded tables + all-to-all lookups."""
+    """Multi-host: row-sharded tables + all-to-all lookups."""
     c = configs3()
     return c.replace(sharding=ShardingConfig(
         num_data=num_data, num_rows=num_rows, lookup_mode="a2a"))

@@ -139,7 +139,7 @@ def _sample_eval_negatives(pos_user: np.ndarray, pos_item: np.ndarray,
     """N fixed negatives per eval positive; never the positive, optionally
     nothing the user ever touched (SURVEY.md §2.4 step 7).
 
-    Fully vectorized (VERDICT.md r1 #8 — the per-row Python retry loop would
+    Fully vectorized (the per-row Python retry loop would
     not survive millions of eval targets): membership in the user's seen set
     is one searchsorted into `seen_keys`, a globally sorted array of
     user*(num_items+1)+item keys; resampling redraws the whole bad mask at

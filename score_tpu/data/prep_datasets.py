@@ -8,9 +8,9 @@ reference mount is empty, so schemas follow the public dataset releases):
   * Taobao UserBehavior (Nov 25 - Dec 3 2017 click log): slots ~ days.
   * Tmall IJCAI-15: slots ~ half-months.
 
-Each `prep_*` reads the raw CSV if present, else synthesizes a
-schema-identical log (offline sandbox — SURVEY.md §7.0), then runs the shared
-`build_dataset` pipeline.
+Each `prep_*` reads the raw CSV if present, else synthesizes the same
+columns a schema-identical log would hold (no network — SURVEY.md §7.0),
+then runs the shared `build_dataset` pipeline.
 
 CLI:  python -m score_tpu.data.prep_datasets <ccmr|taobao|tmall> <out_dir>
           [raw_path] [key=value ...]
@@ -18,6 +18,8 @@ CLI:  python -m score_tpu.data.prep_datasets <ccmr|taobao|tmall> <out_dir>
 
 from __future__ import annotations
 
+import csv
+import itertools
 import os
 import sys
 
@@ -39,37 +41,48 @@ _DEFAULTS = {
 
 
 def _read_csv_cols(path: str, usecols, dtype=np.int64,
-                   chunk_rows: int = 4_000_000) -> list[np.ndarray]:
-    """Chunked columnar CSV reader (VERDICT.md r1 #8: np.loadtxt is a pure
-    Python row loop and would not survive Taobao-scale ~1e8-event logs).
-    pandas' C engine streams `chunk_rows` at a time so peak memory is the
-    packed output + one chunk."""
-    import pandas as pd
+                   chunk_rows: int = 1_000_000) -> list[np.ndarray]:
+    """Chunked columnar CSV reader: returns the integer columns `usecols`
+    (0-based, in the order asked) as arrays. Rows stream through the stdlib
+    csv module `chunk_rows` at a time, so peak memory is the packed output
+    plus one chunk, at Taobao-scale (~1e8-event) logs. A first row whose
+    requested fields are not integers is a header and is skipped."""
     cols = list(usecols)
-    parts = []
-    for chunk in pd.read_csv(path, usecols=cols, dtype=dtype,
-                             chunksize=chunk_rows, engine="c"):
-        parts.append(chunk.to_numpy(dtype=dtype))
-    data = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
-    # pandas returns columns in file order; map back to the requested order
-    order = np.argsort(np.argsort(cols))
-    return [data[:, order[k]] for k in range(len(cols))]
+    parts: list[list[np.ndarray]] = [[] for _ in cols]
+    with open(path, newline="") as f:
+        reader = csv.reader(f)
+        first = next(reader, None)
+        if first is None:
+            raise ValueError(f"{path}: empty CSV")
+        try:
+            head = [np.array([first[c] for c in cols], dtype=dtype)]
+        except ValueError:              # a header row
+            head = []
+        pending = [first] if head else []
+        while True:
+            rows = pending + list(itertools.islice(reader, chunk_rows))
+            pending = []
+            if not rows:
+                break
+            for j, c in enumerate(cols):
+                parts[j].append(np.array([r[c] for r in rows], dtype=dtype))
+    return [np.concatenate(p) if p else np.zeros(0, dtype) for p in parts]
 
 
-def _load_or_synth(dataset: str, raw_path: str | None, usecols,
+def _load_or_synth(raw_path: str | None, usecols,
                    synth_kw) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    if raw_path is None or not os.path.exists(raw_path):
-        raw_path = raw_path or f"/tmp/score_tpu_raw/{dataset}.csv"
-        if not os.path.exists(raw_path):
-            synth.write_raw(dataset, raw_path, **synth_kw)
-    return tuple(_read_csv_cols(raw_path, usecols))
+    """The raw CSV's (user, item, ts) columns when `raw_path` exists, else
+    the synthetic log `synth.write_raw` would store, made in memory."""
+    if raw_path is not None and os.path.exists(raw_path):
+        return tuple(_read_csv_cols(raw_path, usecols))
+    return synth.synth_raw_events(**synth_kw)
 
 
 def prep_ccmr(out_dir: str, raw_path: str | None = None, seed: int = 0,
               synth_kw: dict | None = None, **overrides) -> Dataset:
     kw = dict(_DEFAULTS["ccmr"], **overrides)
     user, item, ts = _load_or_synth(
-        "ccmr", raw_path, usecols=(0, 1, 3),
+        raw_path, usecols=(0, 1, 3),
         synth_kw=dict(synth_kw or {}, num_slots=kw["num_slots"], seed=seed))
     ds = build_dataset(user, item, ts, dataset_name="ccmr", seed=seed, **kw)
     save_dataset(ds, out_dir)
@@ -80,7 +93,7 @@ def prep_taobao(out_dir: str, raw_path: str | None = None, seed: int = 0,
                 synth_kw: dict | None = None, **overrides) -> Dataset:
     kw = dict(_DEFAULTS["taobao"], **overrides)
     user, item, ts = _load_or_synth(
-        "taobao", raw_path, usecols=(0, 1, 4),
+        raw_path, usecols=(0, 1, 4),
         synth_kw=dict(synth_kw or {}, num_slots=kw["num_slots"], seed=seed))
     ds = build_dataset(user, item, ts, dataset_name="taobao", seed=seed, **kw)
     save_dataset(ds, out_dir)
@@ -91,7 +104,7 @@ def prep_tmall(out_dir: str, raw_path: str | None = None, seed: int = 0,
                synth_kw: dict | None = None, **overrides) -> Dataset:
     kw = dict(_DEFAULTS["tmall"], **overrides)
     user, item, ts = _load_or_synth(
-        "tmall", raw_path, usecols=(0, 1, 5),
+        raw_path, usecols=(0, 1, 5),
         synth_kw=dict(synth_kw or {}, num_slots=kw["num_slots"], seed=seed))
     ds = build_dataset(user, item, ts, dataset_name="tmall", seed=seed, **kw)
     save_dataset(ds, out_dir)

@@ -10,7 +10,7 @@ GraphStore — per-time-slot bipartite adjacency, two representations:
       i2u[T, I+1, m], i2u_cnt[T, I+1]   symmetric item side
     Row 0 of each node axis is the padding node and is all-zero. This layout
     makes the per-batch history gather a single static-shape take — the op the
-    north star moves on-device (BASELINE.json:5).
+    north star moves on-device.
   * CSR (canonical for storage/API parity with the reference's
     `get_neighbors(node, slot)` interface):
       u2i_indptr[T, U+2] int64  (per-slot row pointers), u2i_indices int32

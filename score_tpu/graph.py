@@ -3,9 +3,9 @@
 The reference samples neighbors in CPU multiprocessing workers and feeds
 padded arrays through feed_dict (SURVEY.md §3.2 hot loop (a)). Here the dense
 padded adjacency lives in HBM as jnp arrays and the per-batch history gather
-is a static-shape `take` *inside* the jitted step (BASELINE.json:5: move
-"gather-heavy neighbor sampling and sequence batching" on-device) — the host
-only ships (u, i, t*, y) tuples.
+is a static-shape `take` *inside* the jitted step (gather-heavy neighbor
+sampling and sequence batching run on the device) — the host only ships
+(u, i, t*, y) tuples.
 
 Slot-leakage contract (SURVEY.md §2.4 step 1): the returned slot-validity
 mask is `t < t*`, so downstream masking guarantees a target never sees its
@@ -85,7 +85,7 @@ def slot_valid_mask(slots: jnp.ndarray, num_slots: int) -> jnp.ndarray:
 def subsample_neighbors(hist: jnp.ndarray, cnt: jnp.ndarray, k: int,
                         rng) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Seeded uniform k-subset (without replacement) of each row's valid
-    neighbors, on device (VERDICT.md r1 #10: the reference's sampler re-draws
+    neighbors, on device (the reference's sampler re-draws
     per occurrence; prep pre-truncation fixes the sample for the whole run).
 
     Store a wider fan-out at prep (e.g. 2k) and re-draw a k-subset per step:

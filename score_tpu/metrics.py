@@ -3,13 +3,13 @@
 
 Two AUC formulations, both tie-aware:
 
-* `auc` — in-memory rank-sum (Mann-Whitney U) with average-tie ranks,
-  exactly `sklearn.roc_auc_score` semantics (cross-checked in tests), pure
-  jnp via two `searchsorted` calls over the pooled score vector. O(n log n)
+* `auc` — in-memory rank-sum (Mann-Whitney U) with average-tie ranks
+  (cross-checked against a float64 numpy oracle in tests), pure jnp via
+  two `searchsorted` calls over the pooled score vector. O(n log n)
   device memory in the pooled size — fine for batch monitoring, impossible
   at reference eval scale (the 1e8-prep val split pools ~2.1e9 scores).
 * `score_hists` + `hist_auc` — the STREAMING formulation `train.evaluate`
-  uses (VERDICT.md r4 missing #1): scores are bucketed at float16
+  uses: scores are bucketed at float16
   resolution into order-preserving int32 keys (`f16_bucket`), and two
   65536-bin int32 histograms (positives / negatives) accumulate across
   blocks on device. Pooled AUC then falls out of the histograms in one

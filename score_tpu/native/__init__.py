@@ -1,13 +1,18 @@
 """ctypes bindings for the native preprocessing kernels.
 
 Compiled lazily with the system C++ compiler on first use and cached next to
-the source; every entry point has a numpy fallback in
+the source, under a name keyed by a hash of the source and the compile
+flags: a library built from another revision (or copied from another host
+with other flags) is never loaded, it is rebuilt. The flags target the
+generic x86-64/aarch64 baseline, so the library runs on any host of the
+same architecture. Every entry point has a numpy fallback in
 score_tpu.data.prep_common, so a missing toolchain only costs speed.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import tempfile
@@ -18,24 +23,31 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "prep_kernels.cc")
-_LIB_PATH = os.path.join(_HERE, "_prep_kernels.so")
+_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _compile() -> Optional[str]:
+def lib_path() -> str:
+    """Where the library for the current source and flags lives."""
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    return os.path.join(_HERE, f"_prep_kernels-{h.hexdigest()[:16]}.so")
+
+
+def _compile(out: str) -> Optional[str]:
     for cc in ("c++", "g++", "clang++"):
         try:
             # build to a temp file then atomic-rename (parallel test safety)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=_HERE)
             os.close(fd)
-            subprocess.run(
-                [cc, "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-                 _SRC, "-o", tmp],
-                check=True, capture_output=True, timeout=120)
-            os.replace(tmp, _LIB_PATH)
-            return _LIB_PATH
+            subprocess.run([cc, *_FLAGS, _SRC, "-o", tmp],
+                           check=True, capture_output=True, timeout=120)
+            os.replace(tmp, out)
+            return out
         except (subprocess.CalledProcessError, FileNotFoundError,
                 subprocess.TimeoutExpired):
             try:
@@ -53,7 +65,9 @@ def load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        path = _LIB_PATH if os.path.exists(_LIB_PATH) else _compile()
+        path = lib_path()
+        if not os.path.exists(path):
+            path = _compile(path)
         if path is None:
             return None
         lib = ctypes.CDLL(path)

@@ -4,8 +4,8 @@
 SASRec-, RRN-style), dual-side (DELF-style)"; exact roster unverifiable,
 reference mount empty — this is the paper's §4.2 baselines table).
 
-Implemented TPU-first, same input batch dict as ScoreModel so the whole
-train/eval driver works unchanged:
+Same input batch dict and entry points as ScoreModel
+(`model.CandidateModel`), so the whole train/eval driver works unchanged:
 
   MFModel          classic matrix factorization with biases (SVD-family)
   SVDPPModel       SVD++: MF + implicit-feedback factor from the user's
@@ -28,71 +28,69 @@ means, rrn = dual-side GRUs, sasrec/caser = encoder swaps.
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 
 from ..config import ModelConfig
-from .coattn import masked_softmax
 from .embed import EmbeddingTables
+from .layers import (CausalConv, Dense, LayerNorm, MultiHeadAttention,
+                     subkey)
+from .model import CandidateModel
 
 
-class MFModel(nn.Module):
+class _Scalar:
+    """A learned scalar (zero-init), as a block."""
+
+    def init(self, key):
+        return jnp.zeros((), jnp.float32)
+
+
+class _BaselineModel(CandidateModel):
+    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int,
+                 lookup_fn=None):
+        self.cfg = cfg
+        self.num_users = num_users
+        self.num_items = num_items
+        self.lookup_fn = lookup_fn
+        self.blocks = self._blocks(cfg, num_users, num_items)
+
+    def _tables(self, num_users, num_items, dim, shared=False):
+        return EmbeddingTables(num_users=num_users, num_items=num_items,
+                               dim=dim, shared=shared,
+                               lookup_fn=self.lookup_fn)
+
+
+class MFModel(_BaselineModel):
     """score = <eu, ei> + b_u + b_i + b  (ignores histories)."""
 
-    cfg: ModelConfig
-    num_users: int
-    num_items: int
-    lookup_fn: object = None
-    use_pallas_coattn: bool = False
+    def _blocks(self, cfg, nu, ni):
+        return {"tables": self._tables(nu, ni, cfg.embed_dim,
+                                       cfg.shared_table),
+                "user_bias": self._tables(nu, 0, 1),
+                "item_bias": self._tables(0, ni, 1),
+                "bias": _Scalar()}
 
-    def setup(self):
-        cfg = self.cfg
-        self.tables = EmbeddingTables(
-            num_users=self.num_users, num_items=self.num_items,
-            dim=cfg.embed_dim, shared=cfg.shared_table, name="tables")
-        self.user_bias = EmbeddingTables(
-            num_users=self.num_users, num_items=0, dim=1, name="user_bias")
-        self.item_bias = EmbeddingTables(
-            num_users=0, num_items=self.num_items, dim=1, name="item_bias")
-        self.bias = self.param("bias", nn.initializers.zeros_init(), ())
-
-    def _score(self, user, items):
-        # user: [B], items: [B] or [B, C]
-        eu = self.tables.user_emb(user)
-        ei = self.tables.item_emb(items)
-        bu = self.user_bias.user_emb(user)[..., 0]
-        bi = self.item_bias.item_emb(items)[..., 0]
-        if items.ndim > user.ndim:
-            eu = eu[:, None]
-            bu = bu[:, None]
-        return jnp.sum(eu * ei, axis=-1) + bu + bi + self.bias
-
-    def __call__(self, batch: dict, train: bool = False) -> jnp.ndarray:
-        return self._score(batch["user"], batch["item"])
-
-    def score_candidates(self, batch: dict, train: bool = False) -> jnp.ndarray:
-        return self._score(batch["user"], batch["cand"])
+    def _score(self, p, batch, diag, train, rng):
+        b = self.blocks
+        user, items = batch["user"], batch["cand"]          # [B], [B, C]
+        eu = b["tables"].user_emb(p["tables"], user, diag)[:, None]
+        ei = b["tables"].item_emb(p["tables"], items, diag)
+        bu = b["user_bias"].user_emb(p["user_bias"], user, diag)[:, None, 0]
+        bi = b["item_bias"].item_emb(p["item_bias"], items, diag)[..., 0]
+        return jnp.sum(eu * ei, axis=-1) + bu + bi + p["bias"]
 
 
-class PopModel(nn.Module):
+class PopModel(_BaselineModel):
     """Popularity floor: score = b_i. Any sequential model must beat it."""
 
-    cfg: ModelConfig
-    num_users: int
-    num_items: int
-    lookup_fn: object = None
-    use_pallas_coattn: bool = False
+    def _blocks(self, cfg, nu, ni):
+        return {"item_bias": self._tables(0, ni, 1)}
 
-    def setup(self):
-        self.item_bias = EmbeddingTables(
-            num_users=0, num_items=self.num_items, dim=1, name="item_bias")
-
-    def __call__(self, batch: dict, train: bool = False) -> jnp.ndarray:
-        return self.item_bias.item_emb(batch["item"])[..., 0]
-
-    def score_candidates(self, batch: dict, train: bool = False) -> jnp.ndarray:
-        return self.item_bias.item_emb(batch["cand"])[..., 0]
+    def _score(self, p, batch, diag, train, rng):
+        return self.blocks["item_bias"].item_emb(
+            p["item_bias"], batch["cand"], diag)[..., 0]
 
 
 def _hist_mask(cnt: jnp.ndarray, fanout: int,
@@ -111,7 +109,7 @@ def _masked_mean_flat(E: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
     return s / jnp.maximum(c, 1.0)
 
 
-class SVDPPModel(nn.Module):
+class SVDPPModel(_BaselineModel):
     """SVD++ (the classical-MF roster entry beyond plain MF):
 
         ŷ = b + b_u + b_i + < e_u + |N(u)|^{-1/2} Σ_{j∈N(u)} y_j , e_i >
@@ -121,49 +119,40 @@ class SVDPPModel(nn.Module):
     Candidates form: the implicit factor is computed once per user.
     """
 
-    cfg: ModelConfig
-    num_users: int
-    num_items: int
-    lookup_fn: object = None
-    use_pallas_coattn: bool = False
+    def _blocks(self, cfg, nu, ni):
+        return {"tables": self._tables(nu, ni, cfg.embed_dim,
+                                       cfg.shared_table),
+                "implicit_tables": self._tables(0, ni, cfg.embed_dim),
+                "user_bias": self._tables(nu, 0, 1),
+                "item_bias": self._tables(0, ni, 1),
+                "bias": _Scalar()}
 
-    def setup(self):
-        cfg = self.cfg
-        self.tables = EmbeddingTables(
-            num_users=self.num_users, num_items=self.num_items,
-            dim=cfg.embed_dim, shared=cfg.shared_table, name="tables")
-        self.implicit = EmbeddingTables(
-            num_users=0, num_items=self.num_items, dim=cfg.embed_dim,
-            name="implicit_tables")
-        self.user_bias = EmbeddingTables(
-            num_users=self.num_users, num_items=0, dim=1, name="user_bias")
-        self.item_bias = EmbeddingTables(
-            num_users=0, num_items=self.num_items, dim=1, name="item_bias")
-        self.bias = self.param("bias", nn.initializers.zeros_init(), ())
-
-    def _user_vec(self, batch):
-        eu = self.tables.user_emb(batch["user"])                  # [B, d]
+    def _user_vec(self, p, batch, diag=None):
+        """e_u + |N(u)|^-1/2 sum of implicit item embeddings: [B, d]."""
+        b = self.blocks
+        eu = b["tables"].user_emb(p["tables"], batch["user"], diag)  # [B, d]
         mask = _hist_mask(batch["u_cnt"], batch["u_hist"].shape[-1],
                           batch["slot_valid"])                    # [B, T, n]
-        Y = self.implicit.item_emb(batch["u_hist"])               # [B,T,n,d]
+        Y = b["implicit_tables"].item_emb(p["implicit_tables"],
+                                          batch["u_hist"], diag)  # [B,T,n,d]
         m = mask[..., None].astype(Y.dtype)
         s = jnp.sum(Y * m, axis=(1, 2))                           # [B, d]
         cnt = jnp.sum(m, axis=(1, 2))                             # [B, 1]
         return eu + s * jax.lax.rsqrt(jnp.maximum(cnt, 1.0))
 
-    def score_candidates(self, batch: dict, train: bool = False) -> jnp.ndarray:
-        pu = self._user_vec(batch)                                # [B, d]
-        ei = self.tables.item_emb(batch["cand"])                  # [B, C, d]
-        bu = self.user_bias.user_emb(batch["user"])[..., 0]       # [B]
-        bi = self.item_bias.item_emb(batch["cand"])[..., 0]       # [B, C]
-        return jnp.sum(pu[:, None] * ei, axis=-1) + bu[:, None] + bi + self.bias
+    def _score(self, p, batch, diag, train, rng):
+        b = self.blocks
+        pu = self._user_vec(p, batch, diag)                       # [B, d]
+        ei = b["tables"].item_emb(p["tables"], batch["cand"], diag)
+        bu = b["user_bias"].user_emb(p["user_bias"], batch["user"],
+                                     diag)[..., 0]                # [B]
+        bi = b["item_bias"].item_emb(p["item_bias"], batch["cand"],
+                                     diag)[..., 0]                # [B, C]
+        return (jnp.sum(pu[:, None] * ei, axis=-1) + bu[:, None] + bi
+                + p["bias"])
 
-    def __call__(self, batch: dict, train: bool = False) -> jnp.ndarray:
-        cb = dict(batch, cand=batch["item"][:, None])
-        return self.score_candidates(cb)[:, 0]
 
-
-class DELFModel(nn.Module):
+class DELFModel(_BaselineModel):
     """DELF-style dual-embedding deep latent factor model (the dual-side,
     non-recurrent roster entry): each side carries an id embedding AND a
     history-based embedding (user: mean of interacted-item embeddings; item:
@@ -174,55 +163,42 @@ class DELFModel(nn.Module):
     gap SCoRe's slot sequence + co-attention closes (ablation anchor).
     """
 
-    cfg: ModelConfig
-    num_users: int
-    num_items: int
-    lookup_fn: object = None
-    use_pallas_coattn: bool = False
+    _PAIRS = ("ee", "eq", "pe", "pq")
 
-    def setup(self):
-        cfg = self.cfg
-        self.tables = EmbeddingTables(
-            num_users=self.num_users, num_items=self.num_items,
-            dim=cfg.embed_dim, shared=cfg.shared_table, name="tables")
-        # second embedding set, used via histories (the "dual" in DELF)
-        self.hist_tables = EmbeddingTables(
-            num_users=self.num_users, num_items=self.num_items,
-            dim=cfg.embed_dim, name="hist_tables")
-        h = cfg.hidden_dim
-        self.pair_mlps = [nn.Dense(h, name=f"pair_{k}") for k in
-                          ("ee", "eq", "pe", "pq")]
-        self.head = nn.Dense(1, name="head")
+    def _blocks(self, cfg, nu, ni):
+        d, h = cfg.embed_dim, cfg.hidden_dim
+        b = {"tables": self._tables(nu, ni, d, cfg.shared_table),
+             # second embedding set, used via histories (the "dual" in DELF)
+             "hist_tables": self._tables(nu, ni, d)}
+        for k in self._PAIRS:
+            b[f"pair_{k}"] = Dense(2 * d, h)
+        b["head"] = Dense(4 * h, 1)
+        return b
 
-    def score_candidates(self, batch: dict, train: bool = False) -> jnp.ndarray:
-        eu = self.tables.user_emb(batch["user"])                  # [B, d]
-        ei = self.tables.item_emb(batch["cand"])                  # [B, C, d]
+    def _score(self, p, batch, diag, train, rng):
+        b = self.blocks
+        eu = b["tables"].user_emb(p["tables"], batch["user"], diag)  # [B, d]
+        ei = b["tables"].item_emb(p["tables"], batch["cand"], diag)
         mu = _hist_mask(batch["u_cnt"], batch["u_hist"].shape[-1],
                         batch["slot_valid"])                      # [B, T, n]
-        pu = _masked_mean_flat(
-            self.hist_tables.item_emb(batch["u_hist"]), mu)       # [B, d]
+        pu = _masked_mean_flat(b["hist_tables"].item_emb(
+            p["hist_tables"], batch["u_hist"], diag), mu)         # [B, d]
         mi = _hist_mask(batch["i_cnt"], batch["i_hist"].shape[-1],
                         batch["slot_valid"][:, None])             # [B,C,T,m]
-        qi = _masked_mean_flat(
-            self.hist_tables.user_emb(batch["i_hist"]), mi)       # [B, C, d]
+        qi = _masked_mean_flat(b["hist_tables"].user_emb(
+            p["hist_tables"], batch["i_hist"], diag), mi)         # [B, C, d]
 
-        C = ei.shape[1]
         eu_b = jnp.broadcast_to(eu[:, None], ei.shape)
         pu_b = jnp.broadcast_to(pu[:, None], ei.shape)
         pairs = [(eu_b, ei), (eu_b, qi), (pu_b, ei), (pu_b, qi)]
-        feats = [nn.relu(mlp(jnp.concatenate([a, b], axis=-1)))
-                 for mlp, (a, b) in zip(self.pair_mlps, pairs)]
-        return self.head(jnp.concatenate(feats, axis=-1))[..., 0]
-
-    def __call__(self, batch: dict, train: bool = False) -> jnp.ndarray:
-        cb = dict(batch,
-                  cand=batch["item"][:, None],
-                  i_hist=batch["i_hist"][:, None],
-                  i_cnt=batch["i_cnt"][:, None])
-        return self.score_candidates(cb)[:, 0]
+        feats = [jax.nn.relu(b[f"pair_{k}"](p[f"pair_{k}"],
+                                            jnp.concatenate([x, y], -1)))
+                 for k, (x, y) in zip(self._PAIRS, pairs)]
+        return b["head"](p["head"], jnp.concatenate(feats, axis=-1))[..., 0]
 
 
-class CaserEncoder(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class CaserEncoder:
     """Caser-style causal CNN sequence encoder (seq encoder variant 'caser').
 
     Horizontal convolutions of several window sizes, made CAUSAL (left-padded)
@@ -234,53 +210,69 @@ class CaserEncoder(nn.Module):
     xs: [B, T, d], mask: [B, T] -> [B, T, features]
     """
 
+    in_dim: int
     features: int
     widths: tuple = (2, 3, 4)
 
-    @nn.compact
-    def __call__(self, xs: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
+    def _layers(self):
+        d, f = self.in_dim, self.features
+        conv = {f"hconv_{w}": CausalConv(d, f, w) for w in self.widths}
+        return conv, Dense(d, f), Dense(f * (len(self.widths) + 1), f)
+
+    def init(self, key):
+        conv, vproj, out = self._layers()
+        p = {name: c.init(subkey(key, name)) for name, c in conv.items()}
+        p["vproj"] = vproj.init(subkey(key, "vproj"))
+        p["out"] = out.init(subkey(key, "out"))
+        return p
+
+    def __call__(self, p, xs: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
+        conv, vproj, out = self._layers()
         mf = mask[..., None].astype(xs.dtype)
         xs = xs * mf
-        outs = []
-        for w in self.widths:
-            c = nn.Conv(self.features, kernel_size=(w,), padding="CAUSAL",
-                        name=f"hconv_{w}")(xs)
-            outs.append(nn.relu(c))
+        outs = [jax.nn.relu(c(p[name], xs)) for name, c in conv.items()]
         # causal running mean over valid slots (vertical-filter analog)
         cnt = jnp.cumsum(mf, axis=1)
         vert = jnp.cumsum(xs, axis=1) / jnp.maximum(cnt, 1.0)
-        outs.append(nn.Dense(self.features, name="vproj")(vert))
-        h = nn.Dense(self.features, name="out")(
-            jnp.concatenate(outs, axis=-1))
-        return nn.relu(h) * mf
+        outs.append(vproj(p["vproj"], vert))
+        h = out(p["out"], jnp.concatenate(outs, axis=-1))
+        return jax.nn.relu(h) * mf
 
 
-class SelfAttnEncoder(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SelfAttnEncoder:
     """One pre-LN self-attention block over the slot sequence (SASRec-style
     alternative to the GRU; causal over time slots, length-masked).
 
     xs: [B, T, d], mask: [B, T] -> [B, T, features]
     """
 
+    in_dim: int
     features: int
     num_heads: int = 2
 
-    @nn.compact
-    def __call__(self, xs: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
-        B, T, d = xs.shape
-        h = nn.Dense(self.features, name="in_proj")(xs)
+    def _layers(self):
+        f = self.features
+        return {"in_proj": Dense(self.in_dim, f), "ln1": LayerNorm(f),
+                "mha": MultiHeadAttention(f, self.num_heads),
+                "ln2": LayerNorm(f), "ff1": Dense(f, 2 * f),
+                "ff2": Dense(2 * f, f)}
+
+    def init(self, key):
+        return {name: layer.init(subkey(key, name))
+                for name, layer in self._layers().items()}
+
+    def __call__(self, p, xs: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
+        L = self._layers()
+        T = xs.shape[1]
+        h = L["in_proj"](p["in_proj"], xs)
         # causal + validity attention mask [B, 1, T, T]
         causal = jnp.tril(jnp.ones((T, T), bool))
         attn_mask = (mask[:, None, None, :] & causal[None, None, :, :])
-        y = nn.LayerNorm(name="ln1")(h)
-        y = nn.MultiHeadDotProductAttention(
-            num_heads=self.num_heads, qkv_features=self.features,
-            name="mha")(y, y, mask=attn_mask)
-        h = h + y
-        y = nn.LayerNorm(name="ln2")(h)
-        y = nn.Dense(self.features * 2, name="ff1")(y)
-        y = nn.relu(y)
-        y = nn.Dense(self.features, name="ff2")(y)
-        h = h + y
+        y = L["ln1"](p["ln1"], h)
+        h = h + L["mha"](p["mha"], y, attn_mask)
+        y = L["ln2"](p["ln2"], h)
+        y = jax.nn.relu(L["ff1"](p["ff1"], y))
+        h = h + L["ff2"](p["ff2"], y)
         # zero out invalid slots so downstream pooling sees clean states
         return h * mask[..., None].astype(h.dtype)

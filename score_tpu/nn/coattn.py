@@ -1,15 +1,14 @@
 """Per-slot neighbor-set aggregation, including SCoRe's core novelty:
 cross-neighbor co-attention (SURVEY.md §2.3 #8, §2.4 step 3; paper §3.3).
 
-Three aggregation modes, matching the BASELINE.json config ladder:
+Three aggregation modes, matching the config ladder:
   slot_mean    masked mean of the slot's neighbor embeddings   (configs0/1)
   SlotAttention   per-side target-aware attention              (configs2)
   CrossCoAttention   the full bilinear relation matrix
       M^t = Eu_t Wr Ei_t^T with dual masked softmax            (configs3+)
 
-All functions are pure jnp (the XLA-fused reference implementation); the
-Pallas fused kernel in score_tpu.kernels.coattn is equivalence-gated against
-`cross_coattn_ref` here.
+All functions are pure jnp, compiled by XLA; `cross_coattn_ref` is the
+reference the candidates-form block is tested against.
 
 Padding semantics (SURVEY.md §7.3 item 6): an all-padded slot must yield an
 exactly-zero aggregated vector and exactly-zero attention mass — implemented
@@ -18,68 +17,40 @@ with the where-trick around softmax, unit-tested against numpy.
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+
 import jax.numpy as jnp
 
 _NEG = -1e9
 
-# Lowering-probe knob (scripts/perf_sweep.py *_dotfree variants): when True,
-# the tiny neighbor-axis contractions in the unrolled candidates path
-# ("btnd,btd->btn" / "btn,btnd->btd" at n,m≈10) lower as
-# broadcast-multiply + f32-accumulated reduce instead of dot_general.
-# MEASURED AND RETIRED (BASELINE.md r3): 140.8k vs 161.4k examples/s — the
-# hypothesis was that dodging dot_general would remove the [B,T,n,d] layout
-# copies (27% of the step), but the HLO shows XLA itself already lowers
-# these tiny dots to mul+reduce fusions and inserts the copies to run the
-# whole block batch-minormost (filling all 128 VPU lanes at d=32); the
-# explicit f32-accumulated form just adds bigger intermediates. Default
-# stays False; the flag is kept as a documented probe with an equivalence
-# test (tests/test_coattn.py::test_dot_free_candidates_path_matches_einsum).
+# Lowering probe: when True, the tiny neighbor-axis contractions in the
+# unrolled candidates path ("btnd,btd->btn" / "btn,btnd->btd" at n,m~10)
+# lower as broadcast-multiply + f32-accumulated reduce instead of
+# dot_general. An earlier A/B measured it slower than letting XLA lower the
+# tiny dots itself (its explicit f32 intermediates are bigger), so it stays
+# off; the equivalence test keeps the probe honest
+# (tests/test_coattn.py::test_dot_free_candidates_path_matches_einsum).
 DOT_FREE = False
 
-# Reassociation probe (VERDICT.md r4 next #1, round-5): the sum-pool
-# identity's user-side scores reassociate — (Eu_i Wr)·x == Eu_i·(Wr x) — so
-# the [B,T,n,d] EuW intermediate (one of the exact tensors in the r4
-# profile's 33.2% layout-copy group) never needs to exist:
+# Reassociation probe: the sum-pool identity's user-side scores reassociate
+# — (Eu_i Wr)·x == Eu_i·(Wr x) — so the [B,T,n,d] EuW intermediate never
+# needs to exist:
 #   EuW_sum = (Σ_n mu·Eu) @ Wr          (a [B,T,d] matmul, 1/n the FLOPs)
 #   su_c    = Eu · (Ei_sum_c @ Wr^T + ei_c)   (target term FOLDED into the
 #   si_c    = Ei_c · (EuW_sum + eu)            same single dot per side)
 # Float-associativity differs from cross_coattn_ref (sum-of-products vs
 # product-of-sums), so the gate is tolerance-equivalence
-# (tests/test_coattn.py::test_wr_on_summary_matches_ref). RETIRED by the
-# chip A/B (CAND_KERNEL_r5.json): 151.7k vs 233.7k same-window baseline
-# (-35%) — killing the EuW intermediate also kills the n-axis batched-dot
-# fusion XLA builds around it; the smaller-FLOPs form loses to the
-# better-fused one. Stays off; equivalence test keeps the probe honest.
+# (tests/test_coattn.py::test_wr_on_summary_matches_ref). An earlier A/B
+# measured it slower: removing the EuW intermediate also removed the n-axis
+# batched-dot fusion XLA builds around it. Stays off.
 WR_ON_SUMMARY = False
 
-# Candidates-form fused Pallas kernel (kernels/coattn_cand.py, VERDICT.md
-# r4 #1): True routes the sum-pool candidates path through one kernel that
-# reads Eu/Ei once and keeps masked sums, reassociated scores, target
-# terms, both softmaxes, and both weighted sums in VMEM (fused backward
-# too). Attacks the r4 profile's 33.2% layout-copy group at its source —
-# the inter-fusion relayouts of the [B,T,n,d] tensors. Equivalence-gated
-# in tests/test_kernels.py (values + all five grads). RETIRED by the chip
-# A/B (CAND_KERNEL_r5.json): tile 32 (the largest that compiles inside the
-# full train step) ran 158.5k vs 233.7k same-window baseline (-32%); tile
-# 64 compiles standalone but crashes the Mosaic compiler inside the step
-# graph. Structural cause: at (n=10, d=32) every f32 intermediate pads to
-# (8,128) VMEM tiles — a ~6.4x physical traffic blowup that exceeds what
-# the jnp path's 33.2% relayout copies cost. The right fix for this shape
-# class is layout-aware XLA fusion, not a hand kernel. Stays off;
-# interpret-mode equivalence tests keep the kernel honest.
-CAND_KERNEL = False
-CAND_TILE_B = 128
-CAND_INTERPRET = False   # tests: run the kernel interpreted on CPU
-
-# A/B probe (scripts/perf_sweep.py *_noroll variant): True routes the
-# i_shifts path through the shift-pushdown (rolls confined to [B,T,d]-sized
-# tensors; the big item-side tensor never concatenated); False materializes
-# the rolled item side at entry. MEASURED AND RETIRED (BASELINE.md r3):
-# interleaved A/B 151.0/151.5k (pushdown) vs 162.2/157.8k (materialized) —
-# the traced-shift rolls lower to gathers and the per-candidate masked
-# re-sum of [B,T,m,d] costs more than the ~2 ms concat+backward it saves.
-# Default stays False (materialized); the pushdown is kept as an
+# Shift-pushdown probe: True routes the i_shifts path through rolls
+# confined to [B,T,d]-sized tensors (the big item-side tensor is never
+# concatenated); False materializes the rolled item side at entry. An
+# earlier A/B measured the pushdown slower (the traced-shift rolls lower to
+# gathers and the per-candidate masked re-sum of [B,T,m,d] costs more than
+# the concat it saves). Default stays False; the pushdown is kept as an
 # equivalence-tested probe.
 PUSH_ROLLS = False
 
@@ -87,7 +58,7 @@ PUSH_ROLLS = False
 def _vdot(x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
     """einsum('...d,...d->...') as mul + f32-accumulated reduce.
 
-    f32 accumulation matches dot_general's MXU accumulator so bf16 callers
+    f32 accumulation matches dot_general's f32 accumulator so bf16 callers
     lose nothing vs the einsum lowering.
     """
     return jnp.sum(x * y, axis=-1, dtype=jnp.float32).astype(x.dtype)
@@ -122,7 +93,8 @@ def slot_mean(E: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
     return s / c
 
 
-class SlotAttention(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class SlotAttention:
     """Per-side target-aware attention over each slot's neighbor set
     (configs2: one-hop aggregation with no cross terms).
 
@@ -135,20 +107,23 @@ class SlotAttention(nn.Module):
     O(B C T k)-sized score/weight tensors carry the candidate axis.
     """
 
-    @nn.compact
-    def __call__(self, E: jnp.ndarray, mask: jnp.ndarray,
+    dim: int
+
+    def init(self, key):
+        # zero init => uniform attention at t=0, i.e. this rung starts as
+        # exact masked-mean (configs1 behavior) and learns to deviate —
+        # random init made richer rungs start worse than simpler ones
+        return {"w": jnp.zeros((self.dim, self.dim), jnp.float32)}
+
+    def __call__(self, p, E: jnp.ndarray, mask: jnp.ndarray,
                  target: jnp.ndarray) -> jnp.ndarray:
         # E: [B, Ce, T, k, d] (Ce in {1, C}), mask: [B, Ce, T, k],
         # target: [B, C, d] -> [B, C, T, d]
         d = E.shape[-1]
-        # zero init => uniform attention at t=0, i.e. this rung starts as
-        # exact masked-mean (configs1 behavior) and learns to deviate —
-        # random init made richer rungs start worse than simpler ones
-        W = self.param("w", nn.initializers.zeros_init(), (d, d))
-        W = W.astype(E.dtype)    # f32 master param, compute-dtype activations
+        W = p["w"].astype(E.dtype)  # f32 master param, compute-dtype acts
         # project the target, not the neighbors: (E W) . t == E . (W t), and
-        # W t is O(B C d^2) vs O(B C T k d^2) (XLA did not reassociate this
-        # on its own; measured 8 ms/step)
+        # W t is O(B C d^2) vs O(B C T k d^2) (XLA does not reassociate
+        # this on its own)
         tq = jnp.einsum("de,bce->bcd", W, target)
         scale = 1.0 / jnp.sqrt(jnp.asarray(d, E.dtype))
         C = target.shape[1]
@@ -179,7 +154,7 @@ class SlotAttention(nn.Module):
 def cross_coattn_ref(Eu, Ei, mu, mi, Wr, eu, ei, *, pool: str = "sum",
                      target_aware: bool = True):
     """Pure-function cross-neighbor co-attention (paper §3.3; SURVEY.md §2.4
-    step 3). The contract the Pallas kernel must match bit-for-bit (f32).
+    step 3): the per-pair form every pool reduces to.
 
     Args:
       Eu: [B, T, n, d] user-side neighbor (item) embeddings
@@ -200,10 +175,11 @@ def cross_coattn_ref(Eu, Ei, mu, mi, Wr, eu, ei, *, pool: str = "sum",
         # Sum-pooling never needs the relation matrix: pooled user-side
         # scores are su_i = sum_j mask_j (Eu_i Wr) . Ei_j
         #             = (Eu_i Wr) . (sum_j mask_j Ei_j),
-        # which collapses the O(B T n m d) batched tiny matmuls (MXU-hostile
-        # at n,m ~ 10) to O(B T (n+m) d). Exact same math as materializing
-        # M = Eu Wr Ei^T and masked-summing it; rows with mu_i = 0 differ
-        # pre-softmax but are zeroed by the masked softmax either way.
+        # which collapses the O(B T n m d) batched tiny matmuls (too small
+        # for a matrix unit at n,m ~ 10) to O(B T (n+m) d). Exact same math
+        # as materializing M = Eu Wr Ei^T and masked-summing it; rows with
+        # mu_i = 0 differ pre-softmax but are zeroed by the masked softmax
+        # either way.
         # 'mean' divides by the opposite side's valid count — sum-pooled
         # scores otherwise scale with neighbor count, distorting the softmax
         # temperature across slots.
@@ -241,8 +217,10 @@ def cross_coattn_ref(Eu, Ei, mu, mi, Wr, eu, ei, *, pool: str = "sum",
     return cu, ci
 
 
-class CrossCoAttention(nn.Module):
-    """flax module owning the Wr bilinear param; candidates-form forward.
+@dataclasses.dataclass(frozen=True)
+class CrossCoAttention:
+    """Co-attention block owning the Wr bilinear param (plus the target
+    projections when target_aware); candidates-form forward.
 
     Inputs: Eu [B,T,n,d] (user side, SHARED across candidates),
     Ei [B,C,T,m,d], mu [B,T,n], mi [B,C,T,m], eu [B,d], ei [B,C,d].
@@ -251,61 +229,58 @@ class CrossCoAttention(nn.Module):
     For pool='sum' the relation matrix never materializes (identity in
     `cross_coattn_ref`) and no [B,C,T,n,*]-sized tensor is formed from the
     shared side — the user tower's big tensors stay candidate-free, which
-    is what makes negatives/eval-candidates cheap. pool='max' and the
-    Pallas kernel need the per-pair form and fall back to tiling.
+    is what makes negatives/eval-candidates cheap. pool='max' needs the
+    per-pair form and falls back to tiling through `cross_coattn_ref`.
     """
 
+    dim: int
     pool: str = "sum"
     target_aware: bool = True
-    use_pallas: bool = False
     force_pairflat: bool = False   # benchmark switch: tile + per-pair path
 
-    @nn.compact
-    def __call__(self, Eu, Ei, mu, mi, eu, ei, i_shifts=None):
+    def init(self, key):
+        # zero init: relation scores start at 0 => dual masked-mean
+        # aggregation (see SlotAttention note). The target-query
+        # projections are ZERO-init like every other attention weight here:
+        # configs3 then starts as exact dual masked-mean (configs1 behavior)
+        # and learns the same target query configs2 learns PLUS the cross
+        # relation — strictly subsuming per-side attention with a matched
+        # optimization prior. Identity init (raw-dot
+        # queries) was tried first and lost: starting with non-uniform
+        # attention is the same trap round 1 hit with random init.
+        names = ("wr", "wtu", "wti") if self.target_aware else ("wr",)
+        # one array per leaf: a donated state must not alias buffers
+        return {k: jnp.zeros((self.dim, self.dim), jnp.float32)
+                for k in names}
+
+    def __call__(self, p, Eu, Ei, mu, mi, eu, ei, i_shifts=None):
         # i_shifts (in-batch negatives, ScoreModel neg_shift contract):
         # when given, Ei arrives UN-rolled as [B, 1, T, m, d] and candidate
         # c >= 1 is the item side of example b + i_shifts[c-1] (batch roll).
         # Every per-candidate op here is pointwise in the batch axis, so the
-        # rolls are pushed onto the [B,T,d]/[B,d]-sized tensors (roll the
-        # user-side summaries FORWARD, compute in the item-aligned frame
-        # against the single stored Ei, roll the [B,T,d] result back)
-        # instead of materializing a [B, C, T, m, d] concatenated copy of
-        # the biggest item-side tensor — the r3 profile showed ~2 ms/step of
-        # dynamic-update-slice + backward copies from that concat
-        # (model.py:144 attribution). mi still arrives per-candidate
-        # ([B, C, T, m], rolled via i_cnt): mi[:, c] == roll(mi[:, 0], -s_c).
+        # PUSH_ROLLS probe pushes the rolls onto the [B,T,d]/[B,d]-sized
+        # tensors (roll the user-side summaries FORWARD, compute in the
+        # item-aligned frame against the single stored Ei, roll the [B,T,d]
+        # result back) instead of materializing a [B, C, T, m, d]
+        # concatenated copy of the biggest item-side tensor. mi still
+        # arrives per-candidate ([B, C, T, m], rolled via i_cnt):
+        # mi[:, c] == roll(mi[:, 0], -s_c).
         B, C = Ei.shape[0], ei.shape[1]
         T, n, d = Eu.shape[1], Eu.shape[2], Eu.shape[3]
         m = Ei.shape[3]
-        # zero init: relation scores start at 0 => dual masked-mean
-        # aggregation (see SlotAttention note)
-        Wr = self.param("wr", nn.initializers.zeros_init(), (d, d))
-        Wr = Wr.astype(Eu.dtype)  # f32 master param, compute-dtype activations
+        Wr = p["wr"].astype(Eu.dtype)  # f32 master param, compute-dtype acts
         if self.target_aware:
-            # Learned target-query projections, ZERO-init like every other
-            # attention weight here: configs3 then starts as exact dual
-            # masked-mean (configs1 behavior) and learns the same target
-            # query configs2 learns PLUS the cross relation — strictly
-            # subsuming per-side attention with a matched optimization
-            # prior (VERDICT.md r1 #1). Identity init (raw-dot queries) was
-            # tried first and lost: starting with non-uniform attention is
-            # the same trap round 1 hit with random init.
-            Wtu = self.param("wtu", nn.initializers.zeros_init(),
-                             (d, d)).astype(Eu.dtype)
-            Wti = self.param("wti", nn.initializers.zeros_init(),
-                             (d, d)).astype(Eu.dtype)
             # project once per target: O(B C d^2), not O(B C T k d^2)
-            ei = jnp.einsum("de,bce->bcd", Wtu, ei)
-            eu = jnp.einsum("de,be->bd", Wti, eu)
+            ei = jnp.einsum("de,bce->bcd", p["wtu"].astype(Eu.dtype), ei)
+            eu = jnp.einsum("de,be->bd", p["wti"].astype(Eu.dtype), eu)
 
         # The flat per-pair path tiles the shared user side to [B*C, ...]
         # (materializes C copies of the biggest tensors): required for
-        # pool='max'/Pallas, and a benchmark switch otherwise. The profiled
-        # bf16 step spent ~20% in the broadcast/reshape data formatting this
-        # tiling causes, so C == 2 training now uses the unrolled
+        # pool='max', and a benchmark switch otherwise. A profiled bf16
+        # step spent a large share in the broadcast/reshape data formatting
+        # this tiling causes, so C == 2 training uses the unrolled
         # candidate-axis path below like every other C.
         if i_shifts is not None and (self.pool not in ("sum", "mean")
-                                     or self.use_pallas
                                      or self.force_pairflat or C > 8
                                      or not PUSH_ROLLS):
             # non-hot paths: materialize the rolled item side and fall
@@ -314,31 +289,17 @@ class CrossCoAttention(nn.Module):
                 [Ei] + [jnp.roll(Ei, -s, axis=0) for s in i_shifts], axis=1)
             i_shifts = None
 
-        if (CAND_KERNEL and self.pool == "sum" and not self.use_pallas
-                and not self.force_pairflat and not DOT_FREE
-                and i_shifts is None):
-            from score_tpu.kernels.coattn_cand import cross_coattn_cand
-            return cross_coattn_cand(Eu, Ei, mu, mi, Wr, eu, ei,
-                                     self.target_aware, CAND_TILE_B,
-                                     CAND_INTERPRET)
-
-        if (self.pool not in ("sum", "mean") or self.use_pallas
-                or self.force_pairflat):
+        if self.pool not in ("sum", "mean") or self.force_pairflat:
             # per-pair fallback: tile the shared side to [B*C, ...]
             Eu_f = jnp.broadcast_to(Eu[:, None], (B, C, T, n, d)).reshape(
                 B * C, T, n, d)
             mu_f = jnp.broadcast_to(mu[:, None], (B, C, T, n)).reshape(
                 B * C, T, n)
             eu_f = jnp.broadcast_to(eu[:, None], (B, C, d)).reshape(B * C, d)
-            fn = cross_coattn_ref
-            if self.use_pallas:
-                from score_tpu.kernels.coattn import cross_coattn_pallas
-                fn = lambda *a, **k: cross_coattn_pallas(
-                    *a, k["pool"], k["target_aware"])
-            cu, ci = fn(Eu_f, Ei.reshape(B * C, T, m, d), mu_f,
-                        mi.reshape(B * C, T, m), Wr, eu_f,
-                        ei.reshape(B * C, d), pool=self.pool,
-                        target_aware=self.target_aware)
+            cu, ci = cross_coattn_ref(
+                Eu_f, Ei.reshape(B * C, T, m, d), mu_f,
+                mi.reshape(B * C, T, m), Wr, eu_f, ei.reshape(B * C, d),
+                pool=self.pool, target_aware=self.target_aware)
             return (cu.reshape(B, C, T, d), ci.reshape(B, C, T, d))
 
         scale = 1.0 / jnp.sqrt(jnp.asarray(d, Eu.dtype))
@@ -432,9 +393,9 @@ class CrossCoAttention(nn.Module):
 
         if C <= 8:
             # Unroll the candidate axis: einsums carrying a tiny c dim lower
-            # to [n,d]@[d,C] batched matmuls (MXU-hostile; profiled ~3x the
-            # cost of the whole aggregation at C=2). Per-candidate 'btnd,
-            # btd->btn' contractions are the fast pre-candidates shapes.
+            # to [n,d]@[d,C] batched matmuls far too small for a matrix
+            # unit. Per-candidate 'btnd,btd->btn' contractions are the fast
+            # pre-candidates shapes.
             sus, sis, cus, cis = [], [], [], []
             if DOT_FREE and EuW is None:       # retired probe needs EuW
                 EuW = jnp.einsum("btnd,de->btne", Eu, Wr)

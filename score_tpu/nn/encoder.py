@@ -2,8 +2,9 @@
 
 The reference uses `tf.nn.rnn_cell.GRUCell` + `dynamic_rnn` (cuDNN path).
 Here the GRU is a hand-rolled cell under `jax.lax.scan` — XLA fuses the
-per-step elementwise ops into the two gate matmuls; at T ~ 10-50 the serial
-scan is a non-issue (SURVEY.md §7.3 item 3) and batch fills the MXU.
+per-step elementwise ops around the two gate matmuls; at T ~ 10-50 the
+serial scan is short (SURVEY.md §7.3 item 3) and the batch axis carries
+the parallelism.
 
 Cell convention (the "cudnn/linear-before-reset" variant, documented so the
 numpy test reference is unambiguous):
@@ -16,38 +17,43 @@ Masked steps (padded slots) carry h through unchanged.
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 
 from .coattn import masked_softmax
+from .layers import lecun_normal, subkey
 
 # Probe knob (scripts/perf_sweep.py *_unroll variants): lax.scan unroll
-# factor for the GRU recurrence. Semantics identical for any value.
-# MEASURED AND RETIRED (BASELINE.md r3): full unroll at T=9 measured 140.4k
-# vs 161.4k examples/s on the shipped bf16+inbatch_iw step — the unrolled
-# body defeats XLA's cross-step loop fusion instead of helping it. Default
-# stays 1.
+# factor for the GRU recurrence. Semantics identical for any value. An
+# earlier A/B measured full unroll at T=9 slower than 1 (the unrolled body
+# defeated XLA's cross-step loop fusion). Default stays 1.
 SCAN_UNROLL = 1
 
 
-class GRU(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class GRU:
     """Unidirectional GRU over axis 1. xs: [B,T,d], mask: [B,T] -> [B,T,f]."""
 
+    in_dim: int
     features: int
 
-    @nn.compact
-    def __call__(self, xs: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
+    def init(self, key):
+        d, f = self.in_dim, self.features
+        return {"wx": lecun_normal(subkey(key, "wx"), (d, 3 * f)),
+                "wh": lecun_normal(subkey(key, "wh"), (f, 3 * f)),
+                "b": jnp.zeros((3 * f,), jnp.float32)}
+
+    def __call__(self, p, xs: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
         B, T, d = xs.shape
         f = self.features
-        dense_init = nn.initializers.lecun_normal()
-        Wx = self.param("wx", dense_init, (d, 3 * f)).astype(xs.dtype)
-        Wh = self.param("wh", dense_init, (f, 3 * f)).astype(xs.dtype)
-        b = self.param("b", nn.initializers.zeros_init(),
-                       (3 * f,)).astype(xs.dtype)
+        Wx = p["wx"].astype(xs.dtype)
+        Wh = p["wh"].astype(xs.dtype)
+        b = p["b"].astype(xs.dtype)
 
         # Hoist the input projection out of the scan: one big [B*T, d]x[d, 3f]
-        # MXU matmul instead of T small ones.
+        # matmul instead of T small ones.
         gx_all = (xs.reshape(B * T, d) @ Wx + b).reshape(B, T, 3 * f)
 
         def step(h, inp):
@@ -69,9 +75,10 @@ class GRU(nn.Module):
         return hs.transpose(1, 0, 2)
 
 
-class AttnPool(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class AttnPool:
     """Attention pooling of GRU states with the opposite target embedding as
-    query (paper §3.4; BASELINE.json:8 'attention pooling').
+    query (paper §3.4).
 
     scores_t = (h_t W) . q / sqrt(dq);  out = sum_t softmax(scores)_t h_t
     All-masked rows pool to exact zero.
@@ -80,16 +87,19 @@ class AttnPool(nn.Module):
     ([B, 1, T, f]) or per-candidate ([B, C, T, f]); query is [B, C, dq].
     """
 
-    @nn.compact
-    def __call__(self, hs: jnp.ndarray, query: jnp.ndarray,
-                 mask: jnp.ndarray) -> jnp.ndarray:
-        # hs: [B,Ch,T,f], query: [B,C,dq], mask: [B,T] -> [B,C,f]
-        f = hs.shape[-1]
-        dq = query.shape[-1]
+    features: int
+    query_dim: int
+
+    def init(self, key):
         # zero init: pooling starts uniform over valid slots (see the
         # SlotAttention zero-init note in coattn.py)
-        W = self.param("w", nn.initializers.zeros_init(), (f, dq))
-        W = W.astype(hs.dtype)   # f32 master param, compute-dtype activations
+        return {"w": jnp.zeros((self.features, self.query_dim), jnp.float32)}
+
+    def __call__(self, p, hs: jnp.ndarray, query: jnp.ndarray,
+                 mask: jnp.ndarray) -> jnp.ndarray:
+        # hs: [B,Ch,T,f], query: [B,C,dq], mask: [B,T] -> [B,C,f]
+        dq = query.shape[-1]
+        W = p["w"].astype(hs.dtype)  # f32 master param, compute-dtype acts
         # contract the query through W first: O(B C f dq) then O(B C T f),
         # not O(B C T f dq) (same reassociation fix as SlotAttention)
         q = jnp.einsum("fq,bcq->bcf", W, query)

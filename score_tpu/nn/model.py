@@ -1,6 +1,5 @@
 """The SCoRe model family, assembled from shared blocks (SURVEY.md §2.3 #8-10,
-§2.4). One flax module covers the whole BASELINE.json config ladder via
-ModelConfig flags:
+§2.4). One model covers the whole config ladder via ModelConfig flags:
 
   configs0  sides='user',  slot_agg='mean',   seq_pool='last', shared_table
   configs1  sides='dual',  slot_agg='mean',   seq_pool='attn'
@@ -9,15 +8,17 @@ ModelConfig flags:
 
 Forward semantics per SURVEY.md §2.4 steps 2-5.
 
-Two entry points sharing all parameters:
+Plain JAX: `init(rng)` builds the param dict; the entry points below are
+pure functions of (params, batch), sharing all parameters:
 
-  __call__(batch)            flat (u, i) pairs — batch from
+  apply(params, batch)       flat (u, i) pairs — batch from
                              `score_tpu.graph.gather_batch`:
                              user[B], item[B], slot[B], u_hist[B,T,n],
                              u_cnt[B,T], i_hist[B,T,m], i_cnt[B,T],
                              slot_valid[B,T]
 
-  score_candidates(batch)    one user vs C candidate items — the hot path
+  score_candidates(params, batch)
+                             one user vs C candidate items — the hot path
                              for sampled-negative training and ranked eval
                              (batch from `graph.gather_candidate_batch`):
                              user[B], slot[B], u_hist[B,T,n], u_cnt[B,T],
@@ -27,24 +28,61 @@ Two entry points sharing all parameters:
                              neighbor embeddings, and — when the slot
                              aggregation is candidate-independent — the GRU
                              states) are computed ONCE per user, not per
-                             candidate: profiling showed embedding gathers
-                             + their scatter-add grads are ~70% of a train
-                             step, and negatives/candidates duplicated all
-                             of it.
+                             candidate: embedding gathers and their
+                             scatter-add grads dominate a train step, and
+                             negatives/candidates would duplicate them.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
 from ..config import ModelConfig
 from .coattn import CrossCoAttention, SlotAttention, slot_mean
 from .embed import EmbeddingTables, LookupFn
 from .encoder import GRU, AttnPool, last_pool
+from .layers import subkey
 from .scorer import Scorer
+
+
+class CandidateModel:
+    """Entry points shared by ScoreModel and the baselines.
+
+    Subclasses set `self.blocks` (name -> block with `init(key)`) and
+    implement `_score(params, batch, diag, train, rng) -> [B, C] logits`,
+    appending any lookup overflow counters to `diag`.
+    """
+
+    blocks: dict
+
+    def init(self, rng: jax.Array) -> dict:
+        """The param dict: one entry per named block."""
+        return {name: blk.init(subkey(rng, name))
+                for name, blk in self.blocks.items()}
+
+    def score_candidates_aux(self, params, batch: dict, train: bool = False,
+                             rng: Optional[jax.Array] = None):
+        """(logits [B, C], a2a_overflow int32): the overflow counter sums
+        what the sharded lookups reported (0 for local lookups)."""
+        diag = []
+        logits = self._score(params, batch, diag, train, rng)
+        return logits, sum(diag, jnp.zeros((), jnp.int32))
+
+    def score_candidates(self, params, batch: dict, train: bool = False,
+                         rng: Optional[jax.Array] = None) -> jnp.ndarray:
+        return self.score_candidates_aux(params, batch, train, rng)[0]
+
+    def apply(self, params, batch: dict, train: bool = False,
+              rng: Optional[jax.Array] = None) -> jnp.ndarray:
+        """Flat (u, i) pairs: the candidates form with C == 1 -> [B]."""
+        cb = dict(batch, cand=batch["item"][:, None])
+        for k in ("i_hist", "i_cnt"):
+            if k in batch:
+                cb[k] = batch[k][:, None]
+        return self.score_candidates(params, cb, train, rng)[:, 0]
 
 
 def _nbr_mask(cnt: jnp.ndarray, fanout: int,
@@ -55,70 +93,61 @@ def _nbr_mask(cnt: jnp.ndarray, fanout: int,
     return (j < cnt[..., None]) & slot_valid[..., None]
 
 
-class ScoreModel(nn.Module):
+class ScoreModel(CandidateModel):
     """Dual-side neighbor-based sequential scorer (the SCoRe family)."""
 
-    cfg: ModelConfig
-    num_users: int
-    num_items: int
-    lookup_fn: Optional[LookupFn] = None
-    use_pallas_coattn: bool = False
-
-    def setup(self):
-        cfg = self.cfg
-        self.tables = EmbeddingTables(
-            num_users=self.num_users, num_items=self.num_items,
-            dim=cfg.embed_dim, shared=cfg.shared_table,
-            param_dtype=cfg.param_dtype, lookup_fn=self.lookup_fn,
-            name="tables")
+    def __init__(self, cfg: ModelConfig, num_users: int, num_items: int,
+                 lookup_fn: Optional[LookupFn] = None):
+        self.cfg = cfg
+        self.num_users = num_users
+        self.num_items = num_items
+        self.lookup_fn = lookup_fn
+        d, f = cfg.embed_dim, cfg.hidden_dim
         dual = cfg.sides == "dual"
+        b = {"tables": EmbeddingTables(
+            num_users=num_users, num_items=num_items, dim=d,
+            shared=cfg.shared_table, param_dtype=cfg.param_dtype,
+            lookup_fn=lookup_fn)}
         if cfg.slot_agg == "coattn":
-            self.coattn = CrossCoAttention(
-                pool=cfg.coattn_pool, target_aware=cfg.target_aware,
-                use_pallas=self.use_pallas_coattn, name="coattn")
+            b["coattn"] = CrossCoAttention(
+                dim=d, pool=cfg.coattn_pool, target_aware=cfg.target_aware)
         elif cfg.slot_agg == "attn":
-            self.slot_attn_u = SlotAttention(name="slot_attn_u")
+            b["slot_attn_u"] = SlotAttention(dim=d)
             if dual:
-                self.slot_attn_i = SlotAttention(name="slot_attn_i")
+                b["slot_attn_i"] = SlotAttention(dim=d)
 
-        def encoder(name):
+        def encoder():
             if cfg.seq_encoder == "selfattn":
                 from .baselines import SelfAttnEncoder
-                return SelfAttnEncoder(features=cfg.hidden_dim, name=name)
+                return SelfAttnEncoder(in_dim=d, features=f)
             if cfg.seq_encoder == "caser":
                 from .baselines import CaserEncoder
-                return CaserEncoder(features=cfg.hidden_dim, name=name)
-            return GRU(features=cfg.hidden_dim, name=name)
+                return CaserEncoder(in_dim=d, features=f)
+            return GRU(in_dim=d, features=f)
 
-        self.gru_u = encoder("gru_u")
+        b["gru_u"] = encoder()
         if dual:
-            self.gru_i = encoder("gru_i")
+            b["gru_i"] = encoder()
         if cfg.seq_pool == "attn":
-            self.pool_u = AttnPool(name="pool_u")
+            b["pool_u"] = AttnPool(features=f, query_dim=d)
             if dual:
-                self.pool_i = AttnPool(name="pool_i")
-        self.scorer = Scorer(mlp_dims=tuple(cfg.mlp_dims),
-                             dropout=cfg.dropout, dtype=cfg.compute_dtype,
-                             name="scorer")
-
-    # --- flat (u, i) pairs: candidates form with C == 1 ---
-
-    def __call__(self, batch: dict, train: bool = False) -> jnp.ndarray:
-        cb = dict(
-            user=batch["user"], slot=batch["slot"],
-            u_hist=batch["u_hist"], u_cnt=batch["u_cnt"],
-            slot_valid=batch["slot_valid"],
-            cand=batch["item"][:, None],
-            i_hist=batch["i_hist"][:, None],
-            i_cnt=batch["i_cnt"][:, None])
-        return self.score_candidates(cb, train=train)[:, 0]
+                b["pool_i"] = AttnPool(features=f, query_dim=d)
+        # scorer features: [h_u, h_i, eu, ei, h_u*h_i, eu*ei] (dual) or
+        # [h_u, eu, ei, eu*ei] (user side only)
+        b["scorer"] = Scorer(in_dim=3 * f + 3 * d if dual else f + 3 * d,
+                             mlp_dims=tuple(cfg.mlp_dims),
+                             dropout=cfg.dropout, dtype=cfg.compute_dtype)
+        self.blocks = b
 
     # --- the hot path: one user vs C candidates ---
 
-    def score_candidates(self, batch: dict, train: bool = False) -> jnp.ndarray:
+    def _score(self, params, batch: dict, diag, train: bool,
+               rng: Optional[jax.Array]) -> jnp.ndarray:
         cfg = self.cfg
         cdt = jnp.dtype(cfg.compute_dtype)
         dual = cfg.sides == "dual"
+        blk = self.blocks
+        tables, tp = blk["tables"], params["tables"]
 
         sv = batch["slot_valid"]                                 # [B, T]
         shifts = batch.get("neg_shift")
@@ -128,8 +157,7 @@ class ScoreModel(nn.Module):
             # a batch sharded over the mesh, rolling [B,1,T,m,d] f32
             # activations lowers to an all-gather of the full embedded
             # tensor per step plus its transpose in the backward — the
-            # dominant collective of the compiled configs4 step (143 MB of
-            # 290 MB at the bench shape, COMM_MODEL_r4.json). Rolling the
+            # dominant collective of the compiled configs4 step. Rolling the
             # int32 ids moves 1/d-th the bytes, has no backward, and the
             # duplicate ids the roll creates collapse in the a2a dedup, so
             # the lookup exchange grows only by the (tiny) per-device
@@ -148,13 +176,13 @@ class ScoreModel(nn.Module):
                          i_cnt=rolls_ids(batch["i_cnt"]))
             shifts = None
 
-        eu = self.tables.user_emb(batch["user"]).astype(cdt)     # [B, d]
-        ei = self.tables.item_emb(batch["cand"]).astype(cdt)     # [B, C, d]
+        eu = tables.user_emb(tp, batch["user"], diag).astype(cdt)   # [B,d]
+        ei = tables.item_emb(tp, batch["cand"], diag).astype(cdt)   # [B,C,d]
         i_cnt = batch["i_cnt"]
         if shifts is not None:
             # contract: rolls only make sense against a single positive per
             # example — a C>1 candidate axis would interleave candidates and
-            # rolled negatives in scrambled order (ADVICE.md r1)
+            # rolled negatives in scrambled order
             assert ei.shape[1] == 1, (
                 f"neg_shift requires C==1 candidates, got C={ei.shape[1]}")
             # In-batch negatives (DataConfig.train_neg_mode='inbatch'):
@@ -162,8 +190,8 @@ class ScoreModel(nn.Module):
             # item. The item side arrives as C=1 tensors, is embedded once
             # per example, and the per-negative copies are batch-axis rolls
             # of the *embedded* tensors — negatives add zero embedding-row
-            # gathers and zero grad scatter-adds (the dominant step cost;
-            # BASELINE.md scatter-add roofline). Grads flow back through the
+            # gathers and zero grad scatter-adds (the dominant step cost in
+            # the profiles this repo has taken). Grads flow back through the
             # inverse roll, so each positive's history also trains from its
             # appearances as other examples' negative.
             rolls = lambda x: jnp.concatenate(
@@ -174,18 +202,18 @@ class ScoreModel(nn.Module):
         T = sv.shape[1]
 
         # user side: shared across candidates
-        Eu = self.tables.item_emb(batch["u_hist"]).astype(cdt)   # [B,T,n,d]
+        Eu = tables.item_emb(tp, batch["u_hist"], diag).astype(cdt)  # B,T,n,d
         mu = _nbr_mask(batch["u_cnt"], Eu.shape[2], sv)          # [B,T,n]
 
         if dual:
-            Ei = self.tables.user_emb(batch["i_hist"]).astype(cdt)
+            Ei = tables.user_emb(tp, batch["i_hist"], diag).astype(cdt)
             if shifts is not None and cfg.slot_agg != "coattn":
                 # coattn takes the un-rolled [B,1,T,m,d] tensor plus the
                 # shifts; by default (coattn.PUSH_ROLLS=False) it
                 # materializes the same rolled concat internally — the
                 # shift-pushdown alternative (rolls confined to [B,T,d]
-                # summaries) measured 7% SLOWER and is kept only as an
-                # equivalence-tested probe (BASELINE.md r3). The other
+                # summaries) measured slower and is kept only as an
+                # equivalence-tested probe. The other
                 # aggregations keep the materialized form here.
                 Ei = rolls(Ei)
             mi = _nbr_mask(i_cnt, Ei.shape[3],
@@ -196,12 +224,14 @@ class ScoreModel(nn.Module):
         cu_shared = None        # [B,T,d] when candidate-independent
         if cfg.slot_agg == "coattn":
             assert dual, "co-attention requires both sides"
-            cu, ci = self.coattn(Eu, Ei, mu, mi, eu, ei,
-                                 i_shifts=shifts)                # [B,C,T,d]
+            with jax.named_scope("coattn"):       # trace attribution
+                cu, ci = blk["coattn"](params["coattn"], Eu, Ei, mu, mi, eu,
+                                       ei, i_shifts=shifts)  # [B,C,T,d]
         elif cfg.slot_agg == "attn":
-            cu = self.slot_attn_u(Eu[:, None], mu[:, None], ei)  # [B,C,T,d]
+            cu = blk["slot_attn_u"](params["slot_attn_u"], Eu[:, None],
+                                    mu[:, None], ei)  # [B,C,T,d]
             if dual:
-                ci = self.slot_attn_i(Ei, mi, eu_c)
+                ci = blk["slot_attn_i"](params["slot_attn_i"], Ei, mi, eu_c)
         else:  # mean — candidate-independent on the user side
             cu_shared = slot_mean(Eu, mu)                        # [B,T,d]
             if dual:
@@ -209,14 +239,15 @@ class ScoreModel(nn.Module):
 
         # --- sequence encoding (step 4) ---
         if cu_shared is not None:
-            hu_seq = self.gru_u(cu_shared, sv)[:, None]          # [B,1,T,f]
+            hu_seq = blk["gru_u"](params["gru_u"], cu_shared,
+                                  sv)[:, None]                   # [B,1,T,f]
         else:
-            hu_seq = self.gru_u(
-                cu.reshape(B * C, T, -1),
+            hu_seq = blk["gru_u"](
+                params["gru_u"], cu.reshape(B * C, T, -1),
                 jnp.broadcast_to(sv[:, None], (B, C, T)).reshape(B * C, T)
             ).reshape(B, C, T, -1)
         if cfg.seq_pool == "attn":
-            h_u = self.pool_u(hu_seq, ei, sv)                    # [B,C,f]
+            h_u = blk["pool_u"](params["pool_u"], hu_seq, ei, sv)   # [B,C,f]
         else:
             hl = last_pool(hu_seq.reshape(-1, T, hu_seq.shape[-1]),
                            jnp.broadcast_to(
@@ -229,12 +260,12 @@ class ScoreModel(nn.Module):
         eu_b = jnp.broadcast_to(eu[:, None], ei.shape)
         feats = [h_u, eu_b, ei, eu_b * ei]
         if dual:
-            hi_seq = self.gru_i(
-                ci.reshape(B * C, T, -1),
+            hi_seq = blk["gru_i"](
+                params["gru_i"], ci.reshape(B * C, T, -1),
                 jnp.broadcast_to(sv[:, None], (B, C, T)).reshape(B * C, T)
             ).reshape(B, C, T, -1)
             if cfg.seq_pool == "attn":
-                h_i = self.pool_i(hi_seq, eu_c, sv)
+                h_i = blk["pool_i"](params["pool_i"], hi_seq, eu_c, sv)
             else:
                 h_i = last_pool(
                     hi_seq.reshape(B * C, T, -1),
@@ -243,4 +274,5 @@ class ScoreModel(nn.Module):
             feats = [h_u, h_i, eu_b, ei, h_u * h_i, eu_b * ei]
 
         # --- interaction scorer (step 5) ---
-        return self.scorer(feats, train=train)                   # [B, C]
+        return blk["scorer"](params["scorer"], feats, train=train,
+                             rng=rng)                            # [B, C]

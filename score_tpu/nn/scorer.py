@@ -8,37 +8,52 @@ visible).
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Optional, Sequence
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 import optax
 
+from .layers import Dense, dropout, subkey
 
-class Scorer(nn.Module):
+
+@dataclasses.dataclass(frozen=True)
+class Scorer:
     """MLP interaction head over a list of feature vectors.
 
     Dropout (when rate > 0 and train=True) follows each hidden activation —
-    the reference-era CTR regularization knob; requires an apply-time
-    rngs={'dropout': key}.
+    the reference-era CTR regularization knob; needs an rng key in training.
     """
 
+    in_dim: int
     mlp_dims: Sequence[int] = (64, 32)
     dropout: float = 0.0
     dtype: str = "float32"   # hidden-layer compute dtype; logits always f32
 
-    @nn.compact
-    def __call__(self, feats: Sequence[jnp.ndarray],
-                 train: bool = False) -> jnp.ndarray:
+    def _layers(self):
+        dims = (self.in_dim,) + tuple(self.mlp_dims)
+        hidden = [(f"mlp_{i}", Dense(dims[i], w, dtype=self.dtype))
+                  for i, w in enumerate(self.mlp_dims)]
+        return hidden, Dense(dims[-1], 1, dtype="float32")
+
+    def init(self, key):
+        hidden, out = self._layers()
+        p = {name: layer.init(subkey(key, name)) for name, layer in hidden}
+        p["out"] = out.init(subkey(key, "out"))
+        return p
+
+    def __call__(self, p, feats: Sequence[jnp.ndarray], train: bool = False,
+                 rng: Optional[jax.Array] = None) -> jnp.ndarray:
         cdt = jnp.dtype(self.dtype)
         x = jnp.concatenate([f.astype(cdt) for f in feats], axis=-1)
-        for i, w in enumerate(self.mlp_dims):
-            x = nn.Dense(w, name=f"mlp_{i}", dtype=cdt)(x)
-            x = nn.relu(x)
-            x = nn.Dropout(self.dropout, name=f"drop_{i}")(
-                x, deterministic=not train)
-        logit = nn.Dense(1, name="out", dtype=jnp.float32)(x)
-        return jnp.squeeze(logit, axis=-1)
+        hidden, out = self._layers()
+        for i, (name, layer) in enumerate(hidden):
+            x = jax.nn.relu(layer(p[name], x))
+            x = dropout(x, self.dropout,
+                        None if rng is None else jax.random.fold_in(rng, i),
+                        train)
+        return jnp.squeeze(out(p["out"], x), axis=-1)
 
 
 def bce_loss(logits: jnp.ndarray, labels: jnp.ndarray,

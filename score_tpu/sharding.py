@@ -1,8 +1,8 @@
 """Mesh + partition-spec layout (SURVEY.md §2.2, §5 'distributed backend').
 
-The reference has no distributed anything (single-GPU TF1). The TPU build's
+The reference has no distributed anything (single-GPU TF1). This build's
 central distributed component is row-sharded embedding tables served by
-collective lookups (BASELINE.json:5,11):
+collective lookups:
 
   mesh axes: ('data', 'rows') — 'data' spans the batch, 'rows' spans
   embedding-table rows (the recsys model-parallel axis; PP/SP/EP are
@@ -41,7 +41,8 @@ def bringup(shard_cfg=None, coordinator_address: str | None = None,
     cluster env provides them). Single-host: a no-op. Returns
     (mesh, lookup_fn) per the ShardingConfig.
 
-    Transport below the collectives is XLA's (ICI intra-slice, DCN across) —
+    Transport below the collectives is XLA's (NCCL over NVLink within a
+    host, the network across hosts) —
     nothing user-level to configure (SURVEY.md §2.2 'Communication
     backend').
     """
@@ -133,8 +134,7 @@ def batch_sharding(mesh: Mesh) -> NamedSharding:
     """Batch axis sharded over ALL devices (both mesh axes): dense-tower
     compute is data-parallel everywhere; 'rows' is a storage axis for the
     tables, not a compute axis. This is what lets a2a_lookup return
-    data-sharded responses with no replicating all_gather (VERDICT.md r1
-    #5)."""
+    data-sharded responses with no replicating all_gather."""
     return NamedSharding(mesh, P((DATA_AXIS, ROWS_AXIS)))
 
 
@@ -179,8 +179,8 @@ def psum_lookup(mesh: Mesh, table: jnp.ndarray,
 
 def a2a_lookup(mesh: Mesh, table: jnp.ndarray, ids: jnp.ndarray,
                capacity: int = 0, with_overflow: bool = False):
-    """The north-star lookup (BASELINE.json:5): all-to-all request/response
-    exchange over the 'rows' axis — v2 (VERDICT.md r1 #5).
+    """The north-star lookup: all-to-all request/response
+    exchange over the 'rows' axis — v2.
 
     The batch (ids axis 0) is sharded over BOTH mesh axes; each device:
       1. DEDUPS its local ids (sort + unique-rank) — duplicate-heavy id
@@ -205,8 +205,8 @@ def a2a_lookup(mesh: Mesh, table: jnp.ndarray, ids: jnp.ndarray,
     capacity < n_unique. `with_overflow=True` returns
     (emb, total_overflowed_uniques) — the SURVEY's overflow counter,
     psum'd over the whole mesh; 0 iff the result is exact. The train loop
-    surfaces it as the `a2a_overflow` metric (via EmbeddingTables' flax
-    'diagnostics' sow). The embedding computation is identical either way.
+    surfaces it as the `a2a_overflow` metric (EmbeddingTables appends it
+    to the caller's `diag` list, an auxiliary output of the forward). The embedding computation is identical either way.
 
     Overlap note (SURVEY.md §5): the model issues all four lookup exchanges
     (targets + both histories) before any consumer compute, so XLA's

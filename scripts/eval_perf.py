@@ -57,8 +57,7 @@ def main():
     @jax.jit
     def cand_form(params, users, cand, slots):
         mb = gather_candidate_batch(graph, users, cand, slots)
-        return model.apply({"params": params}, mb,
-                           method=model.score_candidates)
+        return model.score_candidates(params, mb)
 
     @jax.jit
     def flat_form(params, users, cand, slots):
@@ -66,7 +65,7 @@ def main():
         uf = jnp.repeat(users, C)
         sf = jnp.repeat(slots, C)
         mb = gather_batch(graph, uf, cand.reshape(-1), sf)
-        return model.apply({"params": params}, mb).reshape(B, C)
+        return model.apply(params, mb).reshape(B, C)
 
     rng = np.random.default_rng(0)
 

@@ -1,4 +1,4 @@
-"""Reference-scale evaluation run (VERDICT.md r4 missing #1 / next #2).
+"""Reference-scale evaluation run.
 
 Builds the pinned 1e8-event synthetic dataset (same knobs as
 scripts/prep_bench.py: 1e6 users, 4e6 items -> ~2.68M kept, ~10.6M val
@@ -8,13 +8,13 @@ streaming `train.evaluate` on the chip and pins wall time + metrics.
 
 What this proves: the split is never device-resident (the old evaluate
 shipped ~4.3 GB of negatives and sorted a ~2.1e9-element pooled score
-vector — impossible on one v5e); the streaming path's device residency is
+vector — impossible on one device); the streaming path's device residency is
 {graph, tables, one block, the O(1) carry} and the pooled AUC comes from
 the two 65536-bin histograms (metrics.py module docstring).
 
 Usage:
   python scripts/eval_scale.py [events=100000000] [train_steps=400]
-      [eval_batch=2048] [out=EVAL_SCALE_r5.json]
+      [eval_batch=2048] [out=chiprun_out/eval_scale.json]
 """
 
 import json
@@ -31,7 +31,7 @@ from prep_bench import synth_uniform_zipf  # scripts/ on sys.path when run
 def main():
     kw = dict(events=100_000_000, users=1_000_000, items=4_000_000, slots=9,
               train_steps=400, eval_batch=2048, cpu=0,
-              out="EVAL_SCALE_r5.json")
+              out="chiprun_out/eval_scale.json")
     for a in sys.argv[1:]:
         k, v = a.split("=", 1)
         kw[k] = type(kw[k])(v)

@@ -1,4 +1,4 @@
-"""Host batch-staging share of the train loop (VERDICT.md r4 #6).
+"""Host batch-staging share of the train loop.
 
 `train()` stages each 50-step chunk with `_stack_batches` (iterator pulls +
 np.stack + host->device put) BETWEEN dispatch chunks, serialized with

@@ -1,4 +1,4 @@
-"""Run the BASELINE.json config ladder (configs0..3) on one dataset and
+"""Run the config ladder (configs0..3) on one dataset and
 report per-rung metrics — the ablation-monotonicity oracle of SURVEY.md §4.1:
 each rung should improve validation AUC over the previous.
 
@@ -12,10 +12,10 @@ Usage: python scripts/ladder.py [out_json] [dataset] [epochs] [--baselines]
            [gen knob k=v ...]
 
 seed= sets the TRAIN seed only (the dataset is the same pinned prep for all
-seeds — the multi-seed protocol of VERDICT.md r2 #3). models= restricts the
+seeds — the multi-seed protocol of BASELINE.md). models= restricts the
 roster to a comma list of preset names.
 
-mode=crossattr uses the cross-side relational generator (VERDICT.md r1 #1)
+mode=crossattr uses the cross-side relational generator
 with the skew defaults that make the co-attention rung's advantage
 measurable (drift_active=3, sig_frac=0.7, junk_frac=0.2 — see BASELINE.md).
 """
@@ -52,7 +52,7 @@ def main():
     # different num_users/num_events silently reuses the stale file
     # (prep_datasets._load_or_synth skips synthesis when the path exists)
     import hashlib
-    # canonicalize numerics (3 vs 3.0 must hash identically — ADVICE.md r3)
+    # canonicalize numerics (3 vs 3.0 must hash identically)
     canon = {k: (float(v) if isinstance(v, (int, float)) else v)
              for k, v in gen_kw.items()}
     gh = hashlib.md5(json.dumps(canon, sort_keys=True).encode()) \

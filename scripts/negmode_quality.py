@@ -1,4 +1,4 @@
-"""Quality gate for in-batch negatives (VERDICT.md r1 #2): train configs3
+"""Quality gate for in-batch negatives: train configs3
 twice on the ladder dataset — train_neg_mode 'uniform' vs 'inbatch' — same
 seed, same data, and compare val/test AUC. 'inbatch' eliminates the
 per-negative embedding gathers + grad scatter-adds (the dominant step cost,

@@ -1,4 +1,4 @@
-"""Reference-scale preprocessing benchmark (VERDICT.md r1 #8).
+"""Reference-scale preprocessing benchmark.
 
 Taobao UserBehavior is ~1e8 events (SURVEY.md §3.1); the prep pipeline must
 survive that scale. This pins wall-time for the two halves separately:
@@ -82,11 +82,10 @@ def main():
     import os
     os.makedirs(os.path.dirname(path), exist_ok=True)
     t0 = time.time()
-    import pandas as pd
-    pd.DataFrame({"user_id": user[:m], "item_id": item[:m],
-                  "category_id": item[:m] % 97,
-                  "behavior_type": np.zeros(m, np.int64),
-                  "timestamp": ts[:m]}).to_csv(path, index=False)
+    np.savetxt(path, np.stack([user[:m], item[:m], item[:m] % 97,
+                               np.zeros(m, np.int64), ts[:m]], axis=1),
+               fmt="%d", delimiter=",", comments="",
+               header="user_id,item_id,category_id,behavior_type,timestamp")
     res["csv_write_s"] = round(time.time() - t0, 1)
     t0 = time.time()
     cols = _read_csv_cols(path, usecols=(0, 1, 4))

@@ -1,12 +1,10 @@
 """Op-level profile of the SERVING dispatch at two catalog scales.
 
-The r4 catalog finding (BASELINE.md): full-catalog topk costs ~8.5 µs per
-candidate at 2.92M items regardless of dispatch shape, vs ~3.1 µs/candidate
-total in the envelope's dispatches over the 90.5k-item bench dataset. This
-script profiles the IDENTICAL [rows, chunk] score_batch dispatch on both
-datasets, so the per-op diff isolates what actually scales with catalog
-size (gathers over the 1.4 GB adjacency+tables vs the ~50 MB ones —
-or something else entirely).
+Full-catalog topk can cost more per candidate at a multi-million-item
+catalog than over the bench dataset. This script profiles the IDENTICAL
+[rows, chunk] score_batch dispatch on both datasets, so the per-op diff
+isolates what actually scales with catalog size (gathers over GB-scale
+adjacency and tables vs tens of MB — or something else entirely).
 
 Usage: python scripts/profile_serve.py [small|catalog] [trace_dir]
 """

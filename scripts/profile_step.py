@@ -3,14 +3,13 @@
 Traces K fused train steps with jax.profiler.trace, converts the xplane dump
 with xprof's hlo_stats tool, and prints (a) self-time grouped by HLO op
 category and (b) the top individual ops — the measurement that drives kernel
-work (the round-1 finding "embedding gathers + scatter-add grads ~70% of
-step" came from this view).
+work.
 
 Usage: python scripts/profile_step.py [batch] [dtype] [trace_dir] [neg_mode]
            [stride]
 
 neg_mode defaults to 'inbatch_iw' — the shipped bench configuration
-(VERDICT.md r2 #5: the profile must cover the step that bench.py times).
+(the profile must cover the step that bench.py times).
 """
 
 from __future__ import annotations

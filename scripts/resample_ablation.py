@@ -1,5 +1,5 @@
-"""Neighbor re-sampling quality ablation (VERDICT.md r2 #8, SURVEY.md §2.3
-#5): does restoring the reference's draw-per-occurrence sampler semantics
+"""Neighbor re-sampling quality ablation (SURVEY.md §2.3 #5): does
+restoring the reference's draw-per-occurrence sampler semantics
 (fresh uniform neighbor subset every step, `data.neighbor_resample=true`)
 help or hurt vs the prep-time fixed sample?
 

@@ -1,4 +1,4 @@
-"""12-slot rung-separation screen (VERDICT.md r4 #8).
+"""12-slot rung-separation screen.
 
 The r4 Tmall 5-seed ladder showed the dual-side rungs tied-within-1sd on
 the 12-slot layout (crossattr knobs were tuned on 9-slot Taobao); the one

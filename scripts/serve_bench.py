@@ -1,8 +1,7 @@
 """Serving-path benchmark: single-request p50 latency vs batched throughput.
 
-The driver's p50 metric (BASELINE.json:2) sits at this sandbox's ~23-25 ms
-relay dispatch RTT floor (BASELINE.md round-3 serving A/B) — transport, not
-model. The serving lever is therefore request batching: ScoringService
+Single-request p50 latency is bounded below by per-dispatch overhead, not
+model work. The serving lever is therefore request batching: ScoringService
 .score_batch stacks R independent (user, candidate-list) requests into one
 dispatch in candidates form (user tower computed once per user). This script
 pins how requests/s scales with R, single-request p50 for parity with
@@ -11,12 +10,12 @@ bench.py, and full-catalog topk latency.
 Usage: python scripts/serve_bench.py [out_json]
        python scripts/serve_bench.py [out_json] --catalog
 
---catalog runs the REFERENCE-SCALE serving capacity probe instead
-(VERDICT.md r3 #1): a ~2.7M-item catalog graph (the pinned 1e8-event prep's
-post-filter item count, PREP_BENCH_r3.json) resident in HBM, full-catalog
+--catalog runs the REFERENCE-SCALE serving capacity probe instead: a
+~2.7M-item catalog graph (the post-filter item count of the 1e8-event prep,
+scripts/prep_bench.py) resident in HBM, full-catalog
 topk streamed through ScoringService's fixed-size chunk pipeline — the
 single-dispatch form would need ~15 GB for the item-side neighbor
-embeddings alone and cannot fit v5e HBM.
+embeddings alone.
 """
 
 from __future__ import annotations
@@ -58,7 +57,7 @@ def main():
     import dataclasses
     cfg = configs3()
     # replace() overrides ONLY the bench knobs; every other ModelConfig field
-    # keeps its configs3 value (ADVICE.md r3: rebuilding from scratch would
+    # keeps its configs3 value (rebuilding from scratch would
     # silently reset unlisted fields to dataclass defaults)
     cfg = cfg.replace(model=dataclasses.replace(
         cfg.model, embed_dim=EMBED_DIM, hidden_dim=64, mlp_dims=(128, 64),
@@ -135,7 +134,7 @@ def catalog_main():
 
     t0 = time.time()
     # sized so the post-filter item count lands at/above the pinned 1e8-prep
-    # catalog (2.68M items, PREP_BENCH_r3.json); min counts 1 keep the
+    # catalog (2.68M items, scripts/prep_bench.py); min counts 1 keep the
     # synthetic catalog wide — serving capacity depends on SIZES, not
     # content. eval negatives are irrelevant here (num_eval_neg=1).
     user, item, ts = synth.synth_events(
@@ -179,7 +178,7 @@ def catalog_main():
     results["items_per_s"] = round(ds.num_items /
                                    float(np.median(lat)))
 
-    # --- multi-user catalog topk (topk_batch, VERDICT.md r4 weak #6) ---
+    # --- multi-user catalog topk (topk_batch) ---
     # R users share every [R, chunk] block dispatch, so the batch axis is
     # full (the single-user path pads grid rows with the same user); the
     # per-user cost should drop accordingly.

@@ -1,7 +1,7 @@
-"""Stride-K table-update quality gate (VERDICT.md r3 #3).
+"""Stride-K table-update quality gate.
 
-TrainConfig.table_update_every=K skips the table-grad scatter-adds (the
-pinned 42% of step time) and the table adam update on (K-1)/K of steps —
+TrainConfig.table_update_every=K skips the table-grad scatter-adds and
+the table adam update on (K-1)/K of steps —
 tables train on a 1/K batch subsample. Contract-change precedent:
 inbatch_iw (BASELINE.md r2) was adopted after a 3-seed quality gate; this
 script runs the same gate for K ∈ {2, 4} on the pinned crossattr dataset.

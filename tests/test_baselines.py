@@ -29,7 +29,7 @@ def test_mf_and_pop_forward_and_train(tiny_dataset):
         model = build_model(cfg, tiny_dataset.num_users,
                            tiny_dataset.num_items)
         state = init_state(cfg, model, g, jax.random.PRNGKey(0))
-        out = model.apply({"params": state.params}, _batch(tiny_dataset, g))
+        out = model.apply(state.params, _batch(tiny_dataset, g))
         assert out.shape == (8,)
         step = make_train_step(model, cfg)
         batch = {k: jnp.asarray(v) for k, v in dict(
@@ -51,7 +51,7 @@ def test_svdpp_and_delf_forward_and_train(tiny_dataset):
         model = build_model(cfg, tiny_dataset.num_users,
                             tiny_dataset.num_items)
         state = init_state(cfg, model, g, jax.random.PRNGKey(0))
-        out = model.apply({"params": state.params}, _batch(tiny_dataset, g))
+        out = model.apply(state.params, _batch(tiny_dataset, g))
         assert out.shape == (8,)
         assert np.isfinite(np.asarray(out)).all()
         step = make_train_step(model, cfg)
@@ -74,8 +74,8 @@ def test_svdpp_implicit_factor_matches_numpy(tiny_dataset):
     model = build_model(cfg, tiny_dataset.num_users, tiny_dataset.num_items)
     state = init_state(cfg, model, g, jax.random.PRNGKey(0))
     b = _batch(tiny_dataset, g)
-    pu = model.apply({"params": state.params}, b,
-                     method=SVDPPModel._user_vec)
+    assert isinstance(model, SVDPPModel)
+    pu = model._user_vec(state.params, b)
     p = state.params
     eu = np.asarray(p["tables"]["user_table"])[np.asarray(b["user"])]
     Y = np.asarray(p["implicit_tables"]["item_table"])
@@ -98,14 +98,13 @@ def test_caser_encoder_causal(rng):
     B, T, d, f = 2, 6, 8, 16
     xs = rng.normal(size=(B, T, d)).astype(np.float32)
     mask = np.ones((B, T), bool)
-    enc = CaserEncoder(features=f)
-    params = enc.init(jax.random.PRNGKey(0), jnp.asarray(xs),
-                      jnp.asarray(mask))
-    h1 = enc.apply(params, jnp.asarray(xs), jnp.asarray(mask))
+    enc = CaserEncoder(in_dim=d, features=f)
+    params = enc.init(jax.random.PRNGKey(0))
+    h1 = enc(params, jnp.asarray(xs), jnp.asarray(mask))
     assert h1.shape == (B, T, f)
     xs2 = xs.copy()
     xs2[:, 4:] = 99.0          # corrupt the future
-    h2 = enc.apply(params, jnp.asarray(xs2), jnp.asarray(mask))
+    h2 = enc(params, jnp.asarray(xs2), jnp.asarray(mask))
     np.testing.assert_allclose(np.asarray(h1)[:, :4], np.asarray(h2)[:, :4],
                                rtol=1e-5, atol=1e-5)
 
@@ -116,7 +115,7 @@ def test_caser_encoder_variant(tiny_dataset):
     g = device_graph(tiny_dataset.graph)
     model = build_model(cfg, tiny_dataset.num_users, tiny_dataset.num_items)
     state = init_state(cfg, model, g, jax.random.PRNGKey(0))
-    out = model.apply({"params": state.params}, _batch(tiny_dataset, g))
+    out = model.apply(state.params, _batch(tiny_dataset, g))
     assert out.shape == (8,)
     assert np.isfinite(np.asarray(out)).all()
 
@@ -137,8 +136,7 @@ def test_baseline_presets_build(tiny_dataset):
         model = build_model(cfg, tiny_dataset.num_users,
                             tiny_dataset.num_items)
         state = init_state(cfg, model, g, jax.random.PRNGKey(0))
-        s = model.apply({"params": state.params}, cb,
-                        method=model.score_candidates)
+        s = model.score_candidates(state.params, cb)
         assert s.shape == (4, 2), name
         assert np.isfinite(np.asarray(s)).all(), name
 
@@ -148,7 +146,7 @@ def test_selfattn_encoder_variant(tiny_dataset):
     g = device_graph(tiny_dataset.graph)
     model = build_model(cfg, tiny_dataset.num_users, tiny_dataset.num_items)
     state = init_state(cfg, model, g, jax.random.PRNGKey(0))
-    out = model.apply({"params": state.params}, _batch(tiny_dataset, g))
+    out = model.apply(state.params, _batch(tiny_dataset, g))
     assert out.shape == (8,)
     assert np.isfinite(np.asarray(out)).all()
     # causality: corrupting future slots must not change targets at t* <= t0
@@ -160,13 +158,12 @@ def test_selfattn_causal_masking(rng):
     B, T, d, f = 2, 6, 8, 16
     xs = rng.normal(size=(B, T, d)).astype(np.float32)
     mask = np.ones((B, T), bool)
-    enc = SelfAttnEncoder(features=f)
-    params = enc.init(jax.random.PRNGKey(0), jnp.asarray(xs),
-                      jnp.asarray(mask))
-    h1 = enc.apply(params, jnp.asarray(xs), jnp.asarray(mask))
+    enc = SelfAttnEncoder(in_dim=d, features=f)
+    params = enc.init(jax.random.PRNGKey(0))
+    h1 = enc(params, jnp.asarray(xs), jnp.asarray(mask))
     xs2 = xs.copy()
     xs2[:, 4:] = 99.0          # corrupt the future
-    h2 = enc.apply(params, jnp.asarray(xs2), jnp.asarray(mask))
+    h2 = enc(params, jnp.asarray(xs2), jnp.asarray(mask))
     np.testing.assert_allclose(np.asarray(h1)[:, :4], np.asarray(h2)[:, :4],
                                rtol=1e-5, atol=1e-5)
 
@@ -200,7 +197,7 @@ def test_scoring_service_from_checkpoint(tiny_dataset, tmp_path):
     mgr.save("best", state, (0, 0), 0.7, 10)
     svc = ScoringService.from_checkpoint(cfg, tiny_dataset, str(tmp_path))
     assert svc.score(1, [1, 2]).shape == (2,)
-    # serving knobs forward through from_checkpoint (ADVICE.md r4 #4)
+    # serving knobs forward through from_checkpoint
     svc2 = ScoringService.from_checkpoint(cfg, tiny_dataset, str(tmp_path),
                                           candidate_chunk=16,
                                           topk_grid_rows=4, slot=2)
@@ -209,7 +206,7 @@ def test_scoring_service_from_checkpoint(tiny_dataset, tmp_path):
 
 def test_topk_empty_and_zero_k(tiny_dataset):
     """topk on an empty candidate list / k=0 returns empty arrays instead of
-    raising from argpartition (ADVICE.md r4 #2)."""
+    raising from argpartition."""
     from score_tpu.serve import ScoringService
     cfg = configs3()
     g = device_graph(tiny_dataset.graph)
@@ -242,7 +239,7 @@ def test_scoring_service_batch_matches_single(tiny_dataset):
 
 
 def test_topk_batch_matches_per_user(tiny_dataset):
-    """topk_batch (multi-user catalog path, VERDICT.md r4 weak #6) ≡
+    """topk_batch (multi-user catalog path) ≡
     per-user topk — same items, same scores, per row — through the chunked
     merge (candidate_chunk forces multiple blocks), plus the empty edges."""
     from score_tpu.serve import ScoringService
@@ -280,7 +277,7 @@ def test_topk_batch_matches_per_user(tiny_dataset):
 
 
 def test_scoring_service_matches_model_apply(tiny_dataset):
-    """Pin the service path to the flat model forward (ADVICE.md r3):
+    """Pin the service path to the flat model forward:
     svc.score == a direct model.apply(__call__) on a gather_batch minibatch
     — an independent oracle, since score() is internally score_batch(R=1)."""
     import jax.numpy as jnp
@@ -298,12 +295,12 @@ def test_scoring_service_matches_model_apply(tiny_dataset):
     B = items.size
     mb = gather_batch(g, jnp.full((B,), user, jnp.int32), jnp.asarray(items),
                       jnp.full((B,), svc.slot, jnp.int32))
-    want = np.asarray(model.apply({"params": state.params}, mb))
+    want = np.asarray(model.apply(state.params, mb))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_scoring_service_chunked_matches_unchunked(tiny_dataset):
-    """Catalog-scale chunking (VERDICT.md r3 #1): a candidate list wider
+    """Catalog-scale chunking: a candidate list wider
     than candidate_chunk streams through fixed-width blocks and must score
     identically to the one-dispatch path (same jit bucket per block)."""
     from score_tpu.serve import ScoringService
@@ -364,13 +361,12 @@ def test_scoring_service_bf16_table_prep_matches(tiny_dataset):
     mb = gather_candidate_batch(g, jnp.asarray([3], jnp.int32),
                                 jnp.asarray(items)[None, :],
                                 jnp.full((1,), svc.slot, jnp.int32))
-    want = np.asarray(model.apply({"params": state.params}, mb,
-                                  method=model.score_candidates))[0]
+    want = np.asarray(model.score_candidates(state.params, mb))[0]
     np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-3)
 
 
 def test_scoring_service_sharded_matches_single(tiny_dataset):
-    """configs4 serving (VERDICT.md r3 #6): a row-sharded service (mesh +
+    """configs4 serving: a row-sharded service (mesh +
     a2a lookup exchange) scores identically to the single-device service."""
     import jax
 
@@ -399,7 +395,7 @@ def test_scoring_service_sharded_matches_single(tiny_dataset):
 
 
 def test_scoring_service_from_sharded_checkpoint(tiny_dataset, tmp_path):
-    """from_checkpoint(mesh=...) restores a row-sharded orbax checkpoint
+    """from_checkpoint(mesh=...) restores a row-sharded checkpoint
     directly onto the mesh and serves it (no host gather)."""
     import jax
 

@@ -54,14 +54,13 @@ def test_candidates_equals_flat(tiny_dataset, name, over):
         1, tiny_dataset.num_items + 1, size=(B, C)).astype(np.int32))
 
     mb_c = gather_candidate_batch(g, users, cand, slots)
-    out_c = model.apply({"params": params}, mb_c,
-                        method=model.score_candidates)
+    out_c = model.score_candidates(params, mb_c)
     assert out_c.shape == (B, C)
 
     # flat forward, one (user, cand[j]) pair at a time
     for j in range(C):
         mb_f = gather_batch(g, users, cand[:, j], slots)
-        out_f = model.apply({"params": params}, mb_f)
+        out_f = model.apply(params, mb_f)
         np.testing.assert_allclose(np.asarray(out_c[:, j]),
                                    np.asarray(out_f),
                                    rtol=2e-5, atol=2e-5,
@@ -81,14 +80,14 @@ def test_candidates_grads_match_flat(tiny_dataset):
 
     def loss_c(p):
         mb = gather_candidate_batch(g, users, cand, slots)
-        out = model.apply({"params": p}, mb, method=model.score_candidates)
+        out = model.score_candidates(p, mb)
         return jnp.sum(out ** 2)
 
     def loss_f(p):
         acc = 0.0
         for j in range(C):
             mb = gather_batch(g, users, cand[:, j], slots)
-            acc = acc + jnp.sum(model.apply({"params": p}, mb) ** 2)
+            acc = acc + jnp.sum(model.apply(p, mb) ** 2)
         return acc
 
     g_c = jax.grad(loss_c)(params)
@@ -114,13 +113,13 @@ def test_inbatch_roll_equals_explicit_candidates(tiny_dataset):
     def out_roll(p):
         mb = gather_candidate_batch(g, users, items[:, None], slots)
         mb["neg_shift"] = jnp.asarray(shifts, jnp.int32)
-        return model.apply({"params": p}, mb, method=model.score_candidates)
+        return model.score_candidates(p, mb)
 
     def out_explicit(p):
         cand = jnp.stack(
             [items] + [jnp.roll(items, -s, axis=0) for s in shifts], axis=1)
         mb = gather_candidate_batch(g, users, cand, slots)
-        return model.apply({"params": p}, mb, method=model.score_candidates)
+        return model.score_candidates(p, mb)
 
     a, b = out_roll(params), out_explicit(params)
     assert a.shape == (B, 1 + len(shifts))
@@ -145,10 +144,9 @@ def test_mf_candidates(tiny_dataset):
     cand = jnp.asarray(rng.integers(
         1, tiny_dataset.num_items + 1, size=(B, C)).astype(np.int32))
     mb_c = gather_candidate_batch(g, users, cand, slots)
-    out_c = model.apply({"params": params}, mb_c,
-                        method=model.score_candidates)
+    out_c = model.score_candidates(params, mb_c)
     for j in range(C):
         mb_f = gather_batch(g, users, cand[:, j], slots)
-        out_f = model.apply({"params": params}, mb_f)
+        out_f = model.apply(params, mb_f)
         np.testing.assert_allclose(np.asarray(out_c[:, j]),
                                    np.asarray(out_f), rtol=1e-5)

@@ -176,8 +176,8 @@ def test_dot_free_candidates_path_matches_einsum(rng):
     mi = jnp.asarray(rng.random((B, C, T, m)) > 0.3)
     eu = jnp.asarray(rng.normal(size=(B, d)).astype(np.float32))
     ei = jnp.asarray(rng.normal(size=(B, C, d)).astype(np.float32))
-    mod = ca.CrossCoAttention(pool="sum", target_aware=True)
-    params = mod.init(jax.random.PRNGKey(0), Eu, Ei, mu, mi, eu, ei)
+    mod = ca.CrossCoAttention(dim=d, pool="sum", target_aware=True)
+    params = mod.init(jax.random.PRNGKey(0))
     params = jax.tree.map(
         lambda x: jnp.asarray(
             rng.normal(size=x.shape).astype(np.float32)) * 0.1, params)
@@ -187,7 +187,7 @@ def test_dot_free_candidates_path_matches_einsum(rng):
         ca.DOT_FREE = flag
         try:
             def loss(p, Eu_):
-                cu, ci = mod.apply(p, Eu_, Ei, mu, mi, eu, ei)
+                cu, ci = mod(p, Eu_, Ei, mu, mi, eu, ei)
                 return jnp.sum(cu ** 2) + 0.5 * jnp.sum(ci ** 2), (cu, ci)
             (val, (cu, ci)), grads = jax.value_and_grad(
                 loss, argnums=(0, 1), has_aux=True)(params, Eu)
@@ -223,8 +223,8 @@ def test_wr_on_summary_matches_ref(rng, pool, target_aware, C):
     mi = jnp.asarray(rng.random((B, C, T, m)) > 0.3)
     eu = jnp.asarray(rng.normal(size=(B, d)).astype(np.float32))
     ei = jnp.asarray(rng.normal(size=(B, C, d)).astype(np.float32))
-    mod = ca.CrossCoAttention(pool=pool, target_aware=target_aware)
-    params = mod.init(jax.random.PRNGKey(0), Eu, Ei, mu, mi, eu, ei)
+    mod = ca.CrossCoAttention(dim=d, pool=pool, target_aware=target_aware)
+    params = mod.init(jax.random.PRNGKey(0))
     params = jax.tree.map(
         lambda x: jnp.asarray(
             rng.normal(size=x.shape).astype(np.float32)) * 0.1, params)
@@ -234,7 +234,7 @@ def test_wr_on_summary_matches_ref(rng, pool, target_aware, C):
         ca.WR_ON_SUMMARY = flag
         try:
             def loss(p, Eu_, Ei_):
-                cu, ci = mod.apply(p, Eu_, Ei_, mu, mi, eu, ei)
+                cu, ci = mod(p, Eu_, Ei_, mu, mi, eu, ei)
                 return jnp.sum(cu ** 2) + 0.5 * jnp.sum(ci ** 2), (cu, ci)
             (val, (cu, ci)), grads = jax.value_and_grad(
                 loss, argnums=(0, 1, 2), has_aux=True)(params, Eu, Ei)
@@ -279,9 +279,8 @@ def test_shift_pushdown_matches_materialized_rolls(rng):
     j = jnp.arange(m)[None, None, None, :]
     mi = (j < i_cnt[..., None]) & sv[:, None, :, None]      # [B,C,T,m]
 
-    mod = ca.CrossCoAttention(pool="sum", target_aware=True)
-    params = mod.init(jax.random.PRNGKey(0), Eu, Ei0, mu, mi, eu, ei,
-                      i_shifts=shifts)
+    mod = ca.CrossCoAttention(dim=d, pool="sum", target_aware=True)
+    params = mod.init(jax.random.PRNGKey(0))
     params = jax.tree.map(
         lambda x: jnp.asarray(
             rng.normal(size=x.shape).astype(np.float32)) * 0.1, params)
@@ -291,7 +290,7 @@ def test_shift_pushdown_matches_materialized_rolls(rng):
         ca.PUSH_ROLLS = flag
         try:
             def loss(p, Eu_, Ei_):
-                cu, ci = mod.apply(p, Eu_, Ei_, mu, mi, eu, ei,
+                cu, ci = mod(p, Eu_, Ei_, mu, mi, eu, ei,
                                    i_shifts=shifts)
                 return jnp.sum(cu ** 2) + 0.5 * jnp.sum(ci ** 2), (cu, ci)
             (val, outs), grads = jax.value_and_grad(
@@ -302,61 +301,6 @@ def test_shift_pushdown_matches_materialized_rolls(rng):
 
     (cu0, ci0), g0 = run(False)
     (cu1, ci1), g1 = run(True)
-    np.testing.assert_allclose(np.asarray(cu0), np.asarray(cu1),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(ci0), np.asarray(ci1),
-                               rtol=1e-5, atol=1e-6)
-    for a, b in zip(jax.tree.leaves(g0), jax.tree.leaves(g1)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-4, atol=1e-5)
-
-
-def test_cand_kernel_module_path_matches(rng):
-    """CrossCoAttention with coattn.CAND_KERNEL=True (interpreted) == the
-    default jnp path — values and grads — through the MODULE, i.e. with the
-    Wt target projections and the i_shifts materialization in front."""
-    from score_tpu.nn import coattn as ca
-
-    B, T, n, m, d = 4, 3, 5, 6, 8
-    k = 2
-    Eu = jnp.asarray(rng.normal(size=(B, T, n, d)).astype(np.float32))
-    Ei0 = jnp.asarray(rng.normal(size=(B, 1, T, m, d)).astype(np.float32))
-    mu = jnp.asarray(rng.random((B, T, n)) > 0.3)
-    eu = jnp.asarray(rng.normal(size=(B, d)).astype(np.float32))
-    shifts = jnp.asarray([1, 3], dtype=jnp.int32)
-    ei1 = jnp.asarray(rng.normal(size=(B, 1, d)).astype(np.float32))
-    ei = jnp.concatenate(
-        [ei1] + [jnp.roll(ei1, -s, axis=0) for s in shifts], axis=1)
-    sv = jnp.asarray(rng.random((B, T)) > 0.25)
-    i_cnt1 = jnp.asarray(rng.integers(0, m + 1, size=(B, 1, T)))
-    i_cnt = jnp.concatenate(
-        [i_cnt1] + [jnp.roll(i_cnt1, -s, axis=0) for s in shifts], axis=1)
-    j = jnp.arange(m)[None, None, None, :]
-    mi = (j < i_cnt[..., None]) & sv[:, None, :, None]
-
-    mod = ca.CrossCoAttention(pool="sum", target_aware=True)
-    params = mod.init(jax.random.PRNGKey(0), Eu, Ei0, mu, mi, eu, ei,
-                      i_shifts=shifts)
-    params = jax.tree.map(
-        lambda x: jnp.asarray(
-            rng.normal(size=x.shape).astype(np.float32)) * 0.1, params)
-
-    def run(flag):
-        old = (ca.CAND_KERNEL, ca.CAND_INTERPRET)
-        ca.CAND_KERNEL, ca.CAND_INTERPRET = flag, True
-        try:
-            def loss(p, Eu_, Ei_):
-                cu, ci = mod.apply(p, Eu_, Ei_, mu, mi, eu, ei,
-                                   i_shifts=shifts)
-                return jnp.sum(cu ** 2) + 0.5 * jnp.sum(ci ** 2), (cu, ci)
-            (val, (cu, ci)), grads = jax.value_and_grad(
-                loss, argnums=(0, 1, 2), has_aux=True)(params, Eu, Ei0)
-            return val, cu, ci, grads
-        finally:
-            ca.CAND_KERNEL, ca.CAND_INTERPRET = old
-
-    v0, cu0, ci0, g0 = run(False)
-    v1, cu1, ci1, g1 = run(True)
     np.testing.assert_allclose(np.asarray(cu0), np.asarray(cu1),
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(np.asarray(ci0), np.asarray(ci1),

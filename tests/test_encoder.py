@@ -34,11 +34,9 @@ def test_gru_vs_numpy(rng):
     mask = rng.random((B, T)) > 0.3
     mask[0] = True
     mask[1, 3:] = False
-    gru = GRU(features=f)
-    params = gru.init(jax.random.PRNGKey(0), jnp.asarray(xs),
-                      jnp.asarray(mask))
-    hs = gru.apply(params, jnp.asarray(xs), jnp.asarray(mask))
-    p = params["params"]
+    gru = GRU(in_dim=d, features=f)
+    p = gru.init(jax.random.PRNGKey(0))
+    hs = gru(p, jnp.asarray(xs), jnp.asarray(mask))
     ref = np_gru(xs, mask, np.asarray(p["wx"]), np.asarray(p["wh"]),
                  np.asarray(p["b"]))
     np.testing.assert_allclose(np.asarray(hs), ref, rtol=1e-4, atol=1e-5)
@@ -50,14 +48,13 @@ def test_gru_masked_steps_carry_state(rng):
     xs = rng.normal(size=(B, T, d)).astype(np.float32)
     mask = np.ones((B, T), dtype=bool)
     mask[:, 2] = False
-    gru = GRU(features=f)
-    params = gru.init(jax.random.PRNGKey(1), jnp.asarray(xs),
-                      jnp.asarray(mask))
-    hs = np.asarray(gru.apply(params, jnp.asarray(xs), jnp.asarray(mask)))
+    gru = GRU(in_dim=d, features=f)
+    params = gru.init(jax.random.PRNGKey(1))
+    hs = np.asarray(gru(params, jnp.asarray(xs), jnp.asarray(mask)))
     np.testing.assert_array_equal(hs[:, 2], hs[:, 1])
     xs2 = xs.copy()
     xs2[:, 2] = 99.0
-    hs2 = np.asarray(gru.apply(params, jnp.asarray(xs2), jnp.asarray(mask)))
+    hs2 = np.asarray(gru(params, jnp.asarray(xs2), jnp.asarray(mask)))
     np.testing.assert_allclose(hs, hs2, atol=1e-6)
 
 
@@ -69,13 +66,13 @@ def test_attn_pool_masked(rng):
     mask = np.ones((B, T), dtype=bool)
     mask[1, 2:] = False
     mask[2] = False
-    pool = AttnPool()
-    params = pool.init(jax.random.PRNGKey(0), jnp.asarray(hs),
-                       jnp.asarray(q), jnp.asarray(mask))
+    pool = AttnPool(features=f, query_dim=dq)
+    params = pool.init(jax.random.PRNGKey(0))
+    assert params["w"].shape == (f, dq)
     # zero-init W -> replace with random for a meaningful numpy check
     W = rng.normal(size=(f, dq)).astype(np.float32)
-    params = {"params": {"w": jnp.asarray(W)}}
-    out = np.asarray(pool.apply(params, jnp.asarray(hs), jnp.asarray(q),
+    params = {"w": jnp.asarray(W)}
+    out = np.asarray(pool(params, jnp.asarray(hs), jnp.asarray(q),
                                 jnp.asarray(mask)))
     assert out.shape == (B, C, f)
     assert np.all(out[2] == 0.0)                       # all-masked -> zero
@@ -89,12 +86,12 @@ def test_attn_pool_masked(rng):
     # padded values must not affect the pooled output
     hs2 = hs.copy()
     hs2[1, :, 2:] = 1e3
-    out2 = np.asarray(pool.apply(params, jnp.asarray(hs2), jnp.asarray(q),
+    out2 = np.asarray(pool(params, jnp.asarray(hs2), jnp.asarray(q),
                                  jnp.asarray(mask)))
     np.testing.assert_allclose(out[1], out2[1], atol=1e-5)
     # per-candidate hs path agrees with shared path on tiled input
     hs_t = np.broadcast_to(hs, (B, C, T, f))
-    out3 = np.asarray(pool.apply(params, jnp.asarray(hs_t), jnp.asarray(q),
+    out3 = np.asarray(pool(params, jnp.asarray(hs_t), jnp.asarray(q),
                                  jnp.asarray(mask)))
     np.testing.assert_allclose(out, out3, rtol=1e-5, atol=1e-6)
 

@@ -1,12 +1,38 @@
-"""Metric functions vs sklearn / brute force (SURVEY.md §4.2)."""
+"""Metric functions vs a numpy rank-sum oracle / brute force (SURVEY.md
+§4.2)."""
 
 import jax.numpy as jnp
 import numpy as np
-from sklearn.metrics import roc_auc_score
 
 from score_tpu.metrics import (F16_BINS, auc, f16_bucket, hist_auc,
                                rank_sum_keys, ranking_metrics, ranking_sums,
                                score_hists)
+
+
+def roc_auc_score(labels, scores):
+    """Tie-aware rank-sum (Mann-Whitney) AUC in float64: the test oracle
+    (same semantics as sklearn's roc_auc_score for binary labels)."""
+    s = np.asarray(scores, np.float64)
+    y = np.asarray(labels) > 0
+    order = np.argsort(s, kind="mergesort")
+    ranks = np.empty(s.size)
+    ranks[order] = np.arange(1, s.size + 1)
+    _, inv, counts = np.unique(s, return_inverse=True, return_counts=True)
+    ranks = (np.bincount(inv, weights=ranks) / counts)[inv]   # tie average
+    n_pos = int(y.sum())
+    n_neg = s.size - n_pos
+    return (ranks[y].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg)
+
+
+def test_rank_sum_oracle_vs_pair_count(rng):
+    """The oracle equals the pairwise definition: P(pos > neg) + P(tie)/2."""
+    scores = rng.integers(0, 7, size=120).astype(np.float64)
+    labels = rng.random(120) > 0.4
+    pos, neg = scores[labels], scores[~labels]
+    diff = pos[:, None] - neg[None, :]
+    want = ((diff > 0).sum() + 0.5 * (diff == 0).sum()) / diff.size
+    np.testing.assert_allclose(roc_auc_score(labels, scores), want,
+                               rtol=1e-12)
 
 
 def test_auc_vs_sklearn(rng):

@@ -30,7 +30,7 @@ def test_forward_shapes_finite(tiny_dataset, name, mk):
     model = build_model(cfg, tiny_dataset.num_users, tiny_dataset.num_items)
     state = init_state(cfg, model, g, jax.random.PRNGKey(0))
     mb = _batch(tiny_dataset, g)
-    logits = model.apply({"params": state.params}, mb)
+    logits = model.apply(state.params, mb)
     assert logits.shape == (8,)
     assert np.isfinite(np.asarray(logits)).all()
 
@@ -70,7 +70,7 @@ def test_no_leakage_through_future_slots(tiny_dataset):
     users = jnp.asarray(tiny_dataset.train.user[:n])
     items = jnp.asarray(tiny_dataset.train.item[:n])
     slots = jnp.asarray(tiny_dataset.train.slot[:n])
-    out1 = model.apply({"params": state.params},
+    out1 = model.apply(state.params,
                        gather_batch(g, users, items, slots))
     # corrupt all adjacency at the max slot and above
     import dataclasses
@@ -87,7 +87,7 @@ def test_no_leakage_through_future_slots(tiny_dataset):
         gh, u2i=u2i2, u2i_cnt=cnt2, i2u=i2u2, i2u_cnt=icnt2))
     # only examples whose t* <= t0 are guaranteed unchanged
     keep = np.asarray(slots) <= t0
-    out2 = model.apply({"params": state.params},
+    out2 = model.apply(state.params,
                        gather_batch(g2, users, items, slots))
     np.testing.assert_allclose(np.asarray(out1)[keep], np.asarray(out2)[keep],
                                atol=1e-6)
@@ -102,7 +102,7 @@ def test_padded_tail_invariance(tiny_dataset):
     model = build_model(cfg, tiny_dataset.num_users, tiny_dataset.num_items)
     state = init_state(cfg, model, g, jax.random.PRNGKey(0))
     mb = _batch(tiny_dataset, g)
-    out1 = model.apply({"params": state.params}, mb)
+    out1 = model.apply(state.params, mb)
     # overwrite padding positions with a valid-looking id
     import dataclasses
     j = np.arange(gh.user_fanout)[None, None, :]
@@ -115,7 +115,7 @@ def test_padded_tail_invariance(tiny_dataset):
     i2u2[ipad] = 3
     g2 = device_graph(dataclasses.replace(gh, u2i=u2i2, i2u=i2u2))
     mb2 = _batch(tiny_dataset, g2)
-    out2 = model.apply({"params": state.params}, mb2)
+    out2 = model.apply(state.params, mb2)
     np.testing.assert_allclose(np.asarray(out1), np.asarray(out2), atol=1e-6)
 
 
@@ -127,7 +127,7 @@ def test_gradients_flow_everywhere(tiny_dataset):
     mb = _batch(tiny_dataset, g)
 
     def loss(params):
-        return jnp.sum(model.apply({"params": params}, mb) ** 2)
+        return jnp.sum(model.apply(params, mb) ** 2)
 
     grads = jax.grad(loss)(state.params)
     flat = jax.tree_util.tree_leaves_with_path(grads)
@@ -166,8 +166,8 @@ def test_bfloat16_compute_path(tiny_dataset):
     b = gather_batch(g, jnp.asarray(tiny_dataset.train.user[idx]),
                      jnp.asarray(tiny_dataset.train.item[idx]),
                      jnp.asarray(tiny_dataset.train.slot[idx]))
-    o32 = m32.apply({"params": state.params}, b)
-    o16 = m16.apply({"params": state.params}, b)   # same f32 master params
+    o32 = m32.apply(state.params, b)
+    o16 = m16.apply(state.params, b)   # same f32 master params
     assert o16.dtype == jnp.float32                # logits always f32
     np.testing.assert_allclose(np.asarray(o32), np.asarray(o16),
                                rtol=0.05, atol=0.05)

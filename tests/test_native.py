@@ -78,7 +78,7 @@ def test_native_deterministic(lib, rng):
 
 def test_native_bucket_slots(lib, rng):
     """Native path ≡ the numpy formula. bucket_slots itself now routes
-    integer ts through the native kernel (VERDICT.md r3 #9), so the numpy
+    integer ts through the native kernel, so the numpy
     side is computed on float64 ts to force the reference path — the formula
     is dtype-agnostic, so the expected slots are identical."""
     ts = rng.integers(0, 10 ** 9, size=5000).astype(np.int64)

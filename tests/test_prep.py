@@ -119,7 +119,7 @@ def test_save_load_roundtrip(tiny_dataset, tmp_path):
 def test_crossattr_drift_active_skew():
     """drift_active=k makes drifting users (the back stable_frac-split half)
     ~k times more active — the knob that skews eval targets toward the
-    quadrant where only cross co-attention has signal (VERDICT.md r1 #1)."""
+    quadrant where only cross co-attention has signal."""
     import numpy as np
 
     n_users, k = 400, 3.0
@@ -145,3 +145,50 @@ def test_synth_schemas(tmp_path):
                         min_user=2, min_item=2, num_slots=6,
                         user_fanout=4, item_fanout=4)
         assert len(ds.train) > 0 and len(ds.test) > 0
+
+
+@pytest.mark.parametrize("chunk_rows", [1, 3, 7, 1000])
+def test_csv_reader_across_chunk_boundaries(tmp_path, chunk_rows):
+    """The chunked reader returns the asked columns, in the asked order,
+    whatever the chunk size (header skipped, no row lost or repeated)."""
+    from score_tpu.data.prep_datasets import _read_csv_cols
+    path = synth.write_raw("taobao", str(tmp_path / "t.csv"), num_users=30,
+                           num_items=40, num_events=500, num_slots=4)
+    want = np.loadtxt(path, delimiter=",", skiprows=1, dtype=np.int64)
+    got = _read_csv_cols(path, (4, 0, 1), chunk_rows=chunk_rows)
+    for col, arr in zip((4, 0, 1), got):
+        assert arr.dtype == np.int64
+        np.testing.assert_array_equal(arr, want[:, col])
+
+
+def test_csv_reader_headerless_and_string_columns(tmp_path):
+    """A real UserBehavior log has no header and a string behavior column;
+    only the integer columns asked for are parsed."""
+    from score_tpu.data.prep_datasets import _read_csv_cols
+    path = tmp_path / "ub.csv"
+    path.write_text("1,10,5,pv,1511544070\n2,11,5,buy,1511544071\n"
+                    "3,12,6,pv,1511544072\n")
+    user, item, ts = _read_csv_cols(str(path), (0, 1, 4), chunk_rows=2)
+    np.testing.assert_array_equal(user, [1, 2, 3])
+    np.testing.assert_array_equal(item, [10, 11, 12])
+    np.testing.assert_array_equal(ts, [1511544070, 1511544071, 1511544072])
+
+
+def test_synthetic_prep_skips_the_csv(tmp_path):
+    """Without a raw file, prep builds from the synthetic columns directly
+    (writing no CSV) and equals the dataset built from the CSV."""
+    import os
+
+    from score_tpu.data.prep_datasets import PREP
+    kw = dict(num_users=80, num_items=150, num_events=4000, num_slots=6)
+    direct = PREP["ccmr"](str(tmp_path / "direct"), synth_kw=kw,
+                          min_user=2, min_item=2, num_slots=6,
+                          user_fanout=4, item_fanout=4)
+    raw = synth.write_raw("ccmr", str(tmp_path / "ccmr.csv"), **kw)
+    via_csv = PREP["ccmr"](str(tmp_path / "csv"), raw_path=raw,
+                           min_user=2, min_item=2, num_slots=6,
+                           user_fanout=4, item_fanout=4)
+    assert not any(n.endswith(".csv") for n in os.listdir(tmp_path / "direct"))
+    np.testing.assert_array_equal(direct.train.user, via_csv.train.user)
+    np.testing.assert_array_equal(direct.val.neg, via_csv.val.neg)
+    np.testing.assert_array_equal(direct.graph.u2i, via_csv.graph.u2i)

@@ -75,7 +75,7 @@ def _a2a_exchange_bytes(mesh, table, ids, cap: int) -> int:
 
 
 def test_a2a_dedup_capacity_exact_and_shrinks(mesh, rng):
-    """VERDICT.md r1 #5: with a static unique-id capacity, (a) results stay
+    """With a static unique-id capacity, (a) results stay
     exact whenever capacity >= per-device unique count, and (b) the exchange
     buffers (compiled collective bytes) shrink vs the exact worst case."""
     V, d = 64, 16
@@ -110,8 +110,8 @@ def test_a2a_dedup_grads_with_duplicates(mesh, rng):
 
 
 def test_a2a_overflow_detected_not_silent(mesh, rng):
-    """SURVEY.md §7.3 item 1 'static capacity with overflow counters'
-    (VERDICT.md r2 #4): when capacity < per-device uniques the lookup
+    """SURVEY.md §7.3 item 1 'static capacity with overflow counters':
+    when capacity < per-device uniques the lookup
     REPORTS a positive overflow count; when capacity suffices the count is
     zero and the embeddings are bit-identical to the counter-free path."""
     V, d = 64, 16
@@ -163,7 +163,7 @@ def test_a2a_overflow_surfaces_in_train_metrics(mesh, tiny_dataset):
 
 def test_a2a_responses_are_data_sharded(mesh, rng):
     """The v2 exchange returns responses sharded over BOTH mesh axes — no
-    replicating all_gather (VERDICT.md r1 #5 'data-sharded responses')."""
+    replicating all_gather."""
     table = jnp.asarray(rng.normal(size=(64, 16)).astype(np.float32))
     ids = jax.device_put(
         jnp.asarray(rng.integers(0, 64, size=(128,)).astype(np.int32)),
@@ -209,7 +209,7 @@ def test_data_parallel_grads_match_single_device(mesh, tiny_dataset, rng):
 
     def loss_fn(params, graph, u, i, t, y):
         mb = gather_batch(graph, u, i, t)
-        logits = model.apply({"params": params}, mb)
+        logits = model.apply(params, mb)
         return bce_loss(logits, y)
 
     # single device
@@ -232,7 +232,7 @@ def test_data_parallel_grads_match_single_device(mesh, tiny_dataset, rng):
 @pytest.mark.parametrize("mode", ["psum", "a2a"])
 def test_model_forward_with_exchange_lookup(mesh, tiny_dataset, mode):
     """Full configs3 forward with the shard_map lookup exchange == local
-    gather, through the flax model (the configs4 integration path)."""
+    gather, through the model (the configs4 integration path)."""
     from score_tpu.config import configs3
     from score_tpu.graph import device_graph, gather_batch
     from score_tpu.sharding import make_lookup_fn
@@ -251,8 +251,8 @@ def test_model_forward_with_exchange_lookup(mesh, tiny_dataset, mode):
     mb = gather_batch(g, jnp.asarray(tiny_dataset.train.user[idx]),
                       jnp.asarray(tiny_dataset.train.item[idx]),
                       jnp.asarray(tiny_dataset.train.slot[idx]))
-    out_local = model_local.apply({"params": state.params}, mb)
-    out_x = model_x.apply({"params": state.params}, mb)
+    out_local = model_local.apply(state.params, mb)
+    out_x = model_x.apply(state.params, mb)
     np.testing.assert_allclose(np.asarray(out_x), np.asarray(out_local),
                                rtol=1e-5, atol=1e-6)
 
@@ -295,7 +295,7 @@ def test_a2a_train_step_matches_local(mesh, tiny_dataset):
 def test_a2a_inbatch_train_step_matches_local(mesh, tiny_dataset):
     """In-batch negatives under the sharded lookup roll the item-side IDS
     before the exchange (model.py id-roll path — kills the dominant
-    all-gather of the compiled configs4 step, COMM_MODEL_r4.json) and must
+    all-gather of the compiled configs4 step) and must
     match the single-device embedded-roll path exactly (embedding(roll) ==
     roll(embedding))."""
     import dataclasses
@@ -348,14 +348,14 @@ def test_configs4_driver_end_to_end(tiny_dataset):
         early_stop_patience=10 ** 9, log_every_steps=10 ** 9))
     out = train(cfg, tiny_dataset, verbose=False)
     # step-count-vs-plan: exactly steps_per_epoch * num_epochs ran (no chunk
-    # mis-count in the fused mesh loop, VERDICT.md r1 weak #4)
+    # mis-count in the fused mesh loop)
     assert out["steps_run"] == len(tiny_dataset.train) // 64
     assert np.isfinite(out["test"]["auc"])
 
 
 @pytest.mark.parametrize("action", ["raise", "warn"])
 def test_overflow_action_policy(tiny_dataset, action, capsys):
-    """VERDICT.md r3 #8: an overflowing configs4 run ABORTS with the
+    """An overflowing configs4 run ABORTS with the
     capacity hint under the default overflow_action='raise'; 'warn' keeps
     the old log-and-continue behavior for bring-up."""
     from score_tpu.config import ShardingConfig, configs4
@@ -417,7 +417,7 @@ def test_sharded_stride_train_step(mesh, tiny_dataset):
 
 
 def test_configs4_stride_loop_end_to_end(tiny_dataset):
-    """VERDICT.md r4 #4: the bench-SHIPPED train-loop configuration — the
+    """The bench-SHIPPED train-loop configuration — the
     static-alternation stride loop (table_update_every=2, lead-in/groups/
     tail) — under GSPMD shardings through the full train() driver. The
     single-step lax.cond form has mesh coverage above; this exercises the

@@ -79,8 +79,8 @@ def test_dropout_trains_and_eval_is_deterministic():
         assert np.isfinite(float(m["loss"]))
     from score_tpu.graph import gather_batch
     mb = gather_batch(g, batch["user"], batch["item"], batch["slot"])
-    o1 = model.apply({"params": state.params}, mb)
-    o2 = model.apply({"params": state.params}, mb)
+    o1 = model.apply(state.params, mb)
+    o2 = model.apply(state.params, mb)
     np.testing.assert_array_equal(np.asarray(o1), np.asarray(o2))
 
 
@@ -119,7 +119,7 @@ def test_train_loop_matches_sequential_steps():
 
 
 def test_table_update_stride_semantics():
-    """Stride-K table updates (TrainConfig.table_update_every, VERDICT.md r3
+    """Stride-K table updates (TrainConfig.table_update_every
     #3): tables (params AND adam moments) change exactly on steps with
     step % K == 0 and are bit-unchanged otherwise; dense params change every
     step; the update-step table math matches the K=1 step exactly (the
@@ -412,8 +412,8 @@ def test_eval_table_cast_matches_f32_eval():
 
 
 def test_streaming_evaluate_matches_in_memory_oracle():
-    """The streamed evaluate (rank sums + f16-bucket AUC histograms,
-    VERDICT.md r4 missing #1) reproduces the in-memory formulation — score
+    """The streamed evaluate (rank sums + f16-bucket AUC histograms)
+    reproduces the in-memory formulation — score
     the whole split in one shot, run ranking_metrics + pooled auc — on a
     real model over a real split, with a ragged tail (batch_size 64 over
     a non-multiple split size).
